@@ -1,0 +1,101 @@
+"""The PyTorch port stands alone: no module of it, and not chip_smoke.py,
+imports jax or the reference package ``totalsegmentator2d_tpu``.
+
+Checked twice: statically (every import statement in the sources), and at
+run time in a fresh interpreter whose import system refuses ``jax``,
+``jaxlib`` and ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
+starts with the same letters): every port module imports, chip_smoke.py
+imports, and a small predict runs on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+from tests.model_fixtures import build_group_set
+from tests.synth_assets import asset_path
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, 'totalsegmentator2d_tpu_torch')
+
+
+def _blocked(name: str) -> bool:
+    top = name.split('.')[0]
+    return top in ('jax', 'jaxlib', 'totalsegmentator2d_tpu')
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PORT):
+        for fn in files:
+            if fn.endswith('.py'):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, 'chip_smoke.py')
+
+
+@pytest.mark.parametrize('name,blocked', [
+    ('jax', True), ('jax.numpy', True), ('jaxlib', True),
+    ('totalsegmentator2d_tpu', True), ('totalsegmentator2d_tpu.io', True),
+    ('totalsegmentator2d_tpu_torch', False),
+    ('totalsegmentator2d_tpu_torch.api', False), ('numpy', False)])
+def test_blocker_matches_exact_names(name, blocked):
+    assert _blocked(name) is blocked
+
+
+def test_no_import_statement_reaches_jax():
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(os.path.relpath(path, REPO), n) for n in names
+                      if _blocked(n)]
+    assert not found, found
+
+
+_CHILD = r'''
+import importlib, pkgutil, sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu'):
+            raise ImportError(f'blocked import: {name}')
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import torch
+import totalsegmentator2d_tpu_torch as port
+mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]
+for m in mods:
+    importlib.import_module(m)
+available = torch.cuda.is_available
+torch.cuda.is_available = lambda: True   # lets chip_smoke import its modules
+import chip_smoke  # noqa: F401
+torch.cuda.is_available = available
+from totalsegmentator2d_tpu_torch.api import TS2D
+with TS2D(key='ts2d-v9-iso', use_remote=False, local=sys.argv[1],
+          device='cpu') as tool:
+    seg = tool.predict(sys.argv[2]).get_segmentation()
+assert seg.ncomponents == 5, seg
+leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu')]
+assert not leaked, leaked
+print('OK', len(mods))
+'''
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    root = str(tmp_path / 'zoo')
+    build_group_set(root, model='ts2d-v9-iso', spacing=(1.2, 2.0))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, '-c', _CHILD, root, asset_path('sample_s0521.nrrd')],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1].startswith('OK')

@@ -1,0 +1,310 @@
+"""Public API: the TS2D orchestrator and its Result container.
+
+The same surface as the reference tool: ``TS2D(key=...)``, ``predict()``,
+``Result.save()`` with its output naming matrix. A homogeneous model set
+(the published ts2d/tsxr sets) runs as ONE fused ensemble
+(inference/ensemble_engine.py) on the CUDA card, or on the CPU when the
+caller passes ``device='cpu'``.
+
+Not ported yet, and raising when asked for: the remote model registry
+(``use_remote=True``), heterogeneous model sets (the per-model engine), PNG
+visuals, async/batched prediction.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+
+from .inference.database import decompose_model_key
+from .inference.ensemble_engine import EnsembleEngine
+from .inference.model import HostedModel
+from .inference.zoo import Zoo
+from .io import MedicalImage, read_image, write_image
+from .ops.annotations import set_annotation_meta
+from .ops.geometry import reduce_dimensions, reorient, restore_dimension
+from .ops.projection import project_multi
+from .utils.config import get_label_colors
+from .utils.device import resolve_device
+from .utils.files import mkdirs
+from .utils.logging import log, warn
+from .utils.params import as_list, as_set
+
+
+class TS2D:
+    """Segment anatomical structures in CT scans (via coronal projection) or
+    native 2D X-rays with an ensemble of 2D multilabel U-Nets.
+
+    :param key: model key, resolved through the alias map and the local
+        database (default 'ts2d' -> ts2d-v2-ep4000b2, all five groups)
+    :param use_remote: download from the remote registry; not ported yet,
+        so it must be False
+    :param local: the local model database root (default ~/.ts2d/models)
+    :param param: extra dot-key parameters merged into every model config
+    :param device: ``None`` = the CUDA card (raises if there is none);
+        ``'cpu'`` runs on the CPU
+    """
+
+    def __init__(self, key: str = 'ts2d', use_remote: bool = True,
+                 local: Optional[str] = None, param: Optional[dict] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        if use_remote:
+            raise NotImplementedError(
+                'The remote model registry is not ported to the PyTorch '
+                'package yet: pass use_remote=False with a local database')
+        model_param = {'nnu.result.colors': get_label_colors()}
+        if param:
+            model_param.update(param)
+
+        self.zoo = Zoo(local=local)
+        self.models: Dict[str, HostedModel] = {}
+        ids = self.zoo.resolve(key, unique_model=True)
+        if not ids:
+            raise RuntimeError(f'No models were resolved for key: {key}')
+        if len(ids) > 1:
+            log(f"The model key '{key}' was resolved to {len(ids)} models: "
+                f"{', '.join(ids)}.")
+        for id_ in ids:
+            try:
+                model = self.zoo.load(id_, param=model_param)
+            except Exception as ex:
+                raise RuntimeError(
+                    f'Failed to load model {id_}'
+                    + (f' (resolved from {key})' if key != id_ else '')) from ex
+            if not model.multilabel:
+                warn(f'The loaded model {id_} is not configured for '
+                     f'multilabel inference - this should not be the case '
+                     f'in TS2D and may lead to unexpected results.')
+            self.models[id_] = model
+        self._fused = self._build_fused()
+
+    def _build_fused(self) -> EnsembleEngine:
+        models = list(self.models.values())
+        for m in models:
+            m.load_fold_params()  # also refines spec with mirror axes
+        ref = models[0]
+        homogeneous = (
+            all(m.spec.multilabel for m in models)
+            and all(m.channels == ref.channels for m in models)
+            and all(m.tile_step_size == ref.tile_step_size
+                    and m.use_mirroring == ref.use_mirroring
+                    and m.spec.allowed_mirroring_axes
+                    == ref.spec.allowed_mirroring_axes for m in models))
+        if not homogeneous:
+            raise NotImplementedError(
+                'Model sets that do not fuse into one ensemble (the per-model '
+                'engine of the reference package) are not ported yet')
+        return EnsembleEngine(
+            [m.spec for m in models], [m.load_fold_params() for m in models],
+            tile_step_size=(ref.tile_step_size
+                            if ref.tile_step_size is not None else 0.5),
+            use_mirroring=ref.use_mirroring, device=self.device)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def __enter__(self) -> 'TS2D':
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Release the models and their device memory."""
+        self.models = {}
+        self._fused = None
+
+    # -- prediction -------------------------------------------------------
+
+    @staticmethod
+    def _model_colors(model: HostedModel) -> dict:
+        palette = model.get_colors()
+        colors = {}
+        for _, name in model.labels.items():
+            c = palette.get(name) or palette.get(str(name).lower())
+            if c is not None:
+                colors[name] = c
+        return colors
+
+    def predict(self, input: Union[MedicalImage, str], collapse: bool = False,
+                merge: bool = True) -> 'TS2D.Result':
+        """Predict the segmentation for an image (path or MedicalImage).
+
+        3D inputs are reoriented to RAI and projected on the host (one
+        channel per model input: MIP, AIP), then the fused ensemble runs
+        on the cropped 2D image; per-model results are channel slices of
+        the merged output.
+
+        :param collapse: collapse outputs to true 2D, discarding the 3D
+            size-1-axis geometry
+        :param merge: merge the per-group segmentations into one multilabel
+            image (117 channels for ts2d-v2)
+        """
+        if isinstance(input, str):
+            input = read_image(input)
+        if not isinstance(input, MedicalImage):
+            raise RuntimeError(
+                f'input must be a string path or a MedicalImage, found: '
+                f'{type(input).__name__}')
+        if self._fused is None:
+            raise RuntimeError('This TS2D instance is closed')
+        original = input
+        models = list(self.models.items())
+        channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
+        if not channels:
+            raise RuntimeError(
+                f'Model {models[0][0]} does not have a channel definition, '
+                f'cannot project the input image.')
+
+        projections: dict = {}
+        if original.actual_dimension() > 2:
+            oriented = reorient(original, 'RAI')
+            ch_list = project_multi(oriented, [n for _, n in channels],
+                                    axis='coronal')
+            projections.update(
+                (name, pimg) for (_, name), pimg in zip(channels, ch_list))
+            model_input = MedicalImage.compose(ch_list) if len(ch_list) > 1 \
+                else ch_list[0]
+        else:
+            if len(channels) != original.ncomponents:
+                raise RuntimeError(
+                    f'The number of channels in the input image does not '
+                    f'match the models channel definition '
+                    f'({len(channels)} vs {original.ncomponents}).')
+            projections.update((f'ch{i}', ch) for i, ch in
+                               enumerate(original.split_channels()))
+            model_input = original
+        native_2d = model_input.dim < 3
+        input2d = model_input if native_2d else reduce_dimensions(model_input)
+        arr = input2d.array
+        if not input2d.is_vector:
+            arr = arr[..., None]
+        spacing_yx = tuple(reversed(input2d.spacing))
+        merged2d = self._fused.predict_array(
+            np.ascontiguousarray(arr, np.float32), spacing_yx)
+
+        per_model_input = input2d if collapse else model_input
+        result: dict = {'models': {}}
+        offset = 0
+        merged_names: dict = {}
+        merged_colors: dict = {}
+        for id_, model in models:
+            n = model.spec.arch.out_channels - (0 if model.multilabel else 1)
+            seg_arr = np.ascontiguousarray(merged2d[..., offset:offset + n])
+            seg = input2d.replace(array=seg_arr, is_vector=True, meta={})
+            colors = self._model_colors(model)
+            set_annotation_meta(seg, names=model.labels, colors=colors)
+            if not (collapse or native_2d):
+                seg = restore_dimension(seg, model_input)
+            mname, mgroup = decompose_model_key(id_)
+            result['models'][id_] = {
+                'id': id_, 'model': mname, 'group': mgroup,
+                'revision': model.revision, 'input': per_model_input,
+                'segmentation': seg,
+            }
+            for _, name in sorted(model.labels.items()):
+                merged_names[len(merged_names) + 1] = name
+                if name in colors:
+                    merged_colors[name] = colors[name]
+            offset += n
+
+        if merge:
+            seg_all = input2d.replace(array=merged2d, is_vector=True, meta={})
+            set_annotation_meta(seg_all, names=merged_names,
+                                colors=merged_colors)
+            if not (collapse or native_2d):
+                seg_all = restore_dimension(seg_all, model_input)
+            result['segmentation'] = seg_all
+
+        result['input'] = original
+        if projections:
+            result['projections'] = projections
+        return TS2D.Result(result)
+
+    # -- results ------------------------------------------------------------
+
+    class Result:
+        def __init__(self, data: dict):
+            self.data = data
+
+        @property
+        def models(self) -> List[str]:
+            return sorted(self.data.get('models', {}).keys())
+
+        def get_input(self, model: Optional[str] = None):
+            if model is not None:
+                return self.data.get('models', {}).get(model, {}).get('input')
+            return self.data.get('input')
+
+        def get_segmentation(self, model: Optional[str] = None):
+            if model is not None:
+                return self.data.get('models', {}).get(model, {}).get('segmentation')
+            return self.data.get('segmentation')
+
+        def get_projection(self, channel: Optional[str] = None):
+            projections = self.data.get('projections', {})
+            if channel is not None:
+                return projections.get(channel)
+            return projections
+
+        def get_statistics(self, model: Optional[str] = None) -> dict:
+            """Per-label statistics of a segmentation: {name: {value,
+            exists, count, mm, color}}."""
+            from .ops.annotations import get_annotation_labels
+            seg = self.get_segmentation(model)
+            if seg is None:
+                return {}
+            return get_annotation_labels(seg, counts=True)
+
+        def save(self, dest: str, name: str = 'result', ext: str = 'nrrd',
+                 models: Union[str, List[str]] = 'final',
+                 targets: Union[str, List[str]] = 'all',
+                 content: str = 'file',
+                 naming: str = 'group') -> None:
+            """Export results as ``<name>[-<group>][.seg].<ext>`` and
+            projections as ``<name>_<channel>.<ext>``.
+
+            :param models: 'final', 'all', or explicit model ids
+            :param targets: subset of {'input','segmentation','projection'} or 'all'
+            :param content: 'file' (PNG visuals are not ported yet)
+            :param naming: 'group' (default) or 'model'
+            """
+            if content != 'file':
+                raise NotImplementedError(
+                    f"content={content!r}: PNG visuals are not ported to the "
+                    f"PyTorch package yet; use content='file'")
+            if naming not in ('group', 'model'):
+                raise ValueError(f"Invalid naming scheme '{naming}', must be "
+                                 f"'group' or 'model'.")
+
+            model_set = as_set(str(t).strip().lower() for t in as_list(models))
+            if 'all' in model_set:
+                model_set |= set(self.models) | {None}
+            if 'final' in model_set:
+                model_set |= {None}
+            model_set -= {'all', 'final'}
+            target_set = as_set(str(t).strip().lower() for t in as_list(targets))
+
+            def _filename(base, key):
+                if key is not None and naming == 'group':
+                    return f'{base}-{decompose_model_key(key)[1]}'
+                return base if key is None else f'{base}-{key}'
+
+            mkdirs(dest)
+            if {'all', 'input'} & target_set:
+                for key in model_set:
+                    img = self.get_input(key)
+                    if img is not None:
+                        write_image(img, os.path.join(
+                            dest, f'{_filename(name, key)}.{ext}'))
+            if {'all', 'segmentation'} & target_set:
+                for key in model_set:
+                    img = self.get_segmentation(key)
+                    if img is not None:
+                        write_image(img, os.path.join(
+                            dest, f'{_filename(name, key)}.seg.{ext}'))
+            if {'all', 'projection'} & target_set:
+                for channel, img in self.get_projection().items():
+                    write_image(img, os.path.join(dest, f'{name}_{channel}.{ext}'))

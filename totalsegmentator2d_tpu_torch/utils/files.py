@@ -1,0 +1,28 @@
+"""File, path and JSON helpers."""
+
+from __future__ import annotations
+
+import json
+import os
+
+
+def read_json(path: str):
+    with open(path, 'r', encoding='utf-8') as f:
+        return json.load(f)
+
+
+def mkdirs(path: str) -> str:
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def get_home_dir() -> str:
+    return os.environ.get('TS2D_HOME') or os.path.join(os.path.expanduser('~'), '.ts2d')
+
+
+def get_local_models_root() -> str:
+    return os.path.join(get_home_dir(), 'models')
+
+
+def get_package_data_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'data')
