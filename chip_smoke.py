@@ -5,20 +5,27 @@
 Phases (any failure exits non-zero; the result lines print only at the end):
 
 1. Device info: the card (nvidia-smi), CUDA, nvcc; builds every kernel from
-   the sources in the checkout.
-2. Every kernel against its plain PyTorch version (and scipy) on the card,
-   at the shapes the main path gives it and at edge shapes; kernel, plain
-   and library-yardstick times with CUDA events.
-3. The main path at full width: ``TS2D(...).predict(scan)`` with a random
+   the sources in the checkout, all at once.
+2. Every kernel against its plain PyTorch version on the card, at the
+   shapes the main paths give it and at edge shapes, with bitwise-repeat
+   checks; kernel, plain and library-yardstick times with CUDA events, and
+   each kernel's bound at those shapes.
+3. The main paths at full width: ``TS2D(...).predict(scan)`` with a random
    5-group / 117-label flagship ensemble (6-stage nnU-Net, features
    32..512, patch 256^2) on a clinical-spacing torso phantom CT
-   (400x512x512 at 1.25x0.78x0.78 mm, so both projection axes resample),
-   with the kernels' launch counts read around one scan; then
-   ``Result.save`` read back; then the blocking seconds per scan and a
-   breakdown of one scan (host, engine, U-Net forwards, a profiler trace).
+   (400x512x512 at 1.25x0.78x0.78 mm, so both projection axes resample).
+   First at precision 'exact' (fp32), then at 'fast' (bf16 U-Nets through
+   the fused block kernel); each with the kernels' launch counts set to 0
+   just before one scan and read just after, the blocking seconds per scan
+   and a breakdown of one scan (host, engine, U-Net forwards, a profiler
+   trace). The exact result is saved and read back; two fast scans must
+   give the same masks, and the fast/exact mask agreement is printed.
 4. The port on the GPU against the port on the CPU (plain kernel versions)
-   at a reduced architecture: mask agreement >= 0.999.
-5. One JSON line with every kernel, then the device line.
+   at a reduced architecture: mask agreement >= 0.999 exact, >= 0.99 fast.
+5. A set whose groups disagree on precision, through the per-model engines
+   on the card: both kernels must run.
+6. One JSON line with every kernel, then the card line, then the device
+   line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package.
@@ -40,12 +47,14 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import scipy.ndimage as ndi  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from totalsegmentator2d_tpu_torch.api import TS2D  # noqa: E402
 from totalsegmentator2d_tpu_torch.io import MedicalImage, read_image  # noqa: E402
 from totalsegmentator2d_tpu_torch.models.unet import UNet  # noqa: E402
 from totalsegmentator2d_tpu_torch.models.plans import parse_model_spec  # noqa: E402
 from totalsegmentator2d_tpu_torch.ops.cuda import build  # noqa: E402
+from totalsegmentator2d_tpu_torch.ops.cuda import fused_block as FB  # noqa: E402
 from totalsegmentator2d_tpu_torch.ops.cuda import prefilter as PF  # noqa: E402
 from totalsegmentator2d_tpu_torch.ops.geometry import reorient  # noqa: E402
 from totalsegmentator2d_tpu_torch.ops.projection import project_multi  # noqa: E402
@@ -55,10 +64,12 @@ from totalsegmentator2d_tpu_torch.utils.device import exact_numerics  # noqa: E4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')   # ignored by git
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM and fp32 outside the
-# tensor cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM, fp32 outside the
+# tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+FAST = {'nnu.predict.precision': 'fast'}
 
 # the flagship group architecture (6-stage nnU-Net PlainConvUNet at 256^2,
 # the ts2d-v2 group-model shape)
@@ -73,6 +84,16 @@ SMALL = dict(n_stages=4, features=(8, 16, 32, 32), patch=(64, 64),
 
 def phase(name):
     print(f'== {name}', flush=True)
+
+
+def reset_launches():
+    PF.bspline_prefilter_cuda.launches = 0
+    FB.fused_norm_act_conv_cuda.launches = 0
+
+
+def read_launches():
+    return {'bspline_prefilter': PF.bspline_prefilter_cuda.launches,
+            'fused_norm_act_conv': FB.fused_norm_act_conv_cuda.launches}
 
 
 def cuda_ms(fn, iters):
@@ -108,6 +129,30 @@ def device_info():
 
 # -- 2. kernels against their plain versions ----------------------------------
 
+def prefilter_reference(x, axis):
+    """The reference package's prefilter formula in float64 numpy (its
+    ``bspline_prefilter_1d``): a causal-init series of min(18, 2n-2) taps
+    over the mirrored line, then the causal and anticausal passes."""
+    x = np.moveaxis(np.asarray(x, np.float64), axis, 0)
+    n = x.shape[0]
+    z = np.sqrt(3.0) - 2.0
+    gain = (1.0 - z) * (1.0 - 1.0 / z)
+    period = 2 * n - 2
+    acc = x[0].copy()
+    for k in range(1, min(PF.HORIZON, period) + 1):
+        m = k % period
+        acc += z ** k * x[m if m < n else period - m]
+    s = np.empty_like(x)
+    s[0] = gain * acc
+    for i in range(1, n):
+        s[i] = gain * x[i] + z * s[i - 1]
+    c = np.empty_like(x)
+    c[n - 1] = z / (z * z - 1.0) * (z * s[n - 2] + s[n - 1])
+    for i in range(n - 2, -1, -1):
+        c[i] = z * (c[i + 1] - s[i])
+    return np.moveaxis(c, 0, axis)
+
+
 def check_prefilter():
     phase('kernel: bspline_prefilter')
     gen = torch.Generator().manual_seed(0)
@@ -117,11 +162,17 @@ def check_prefilter():
         nonlocal worst
         y = PF.bspline_prefilter_cuda(x, axis)
         torch.cuda.synchronize()
+        if not torch.equal(y, PF.bspline_prefilter_cuda(x, axis)):
+            raise SystemExit('prefilter kernel is not bitwise repeatable')
         plain = PF.bspline_prefilter_plain(x, axis)
         torch.testing.assert_close(y, plain, rtol=1e-5, atol=1e-6)
-        ref = ndi.spline_filter1d(x.double().cpu().numpy(), order=3, axis=axis,
-                                  mode='mirror')
-        np.testing.assert_allclose(y.cpu().numpy(), ref, rtol=1e-4, atol=1e-5)
+        out, xs = y.cpu().numpy(), x.cpu().numpy()
+        np.testing.assert_allclose(out, prefilter_reference(xs, axis),
+                                   rtol=1e-4, atol=1e-5)
+        if x.shape[axis] >= 10:  # the reference's series meets scipy's
+            ref = ndi.spline_filter1d(xs.astype(np.float64), order=3,
+                                      axis=axis, mode='mirror')
+            np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
         worst = max(worst, float((y - plain).abs().max()))
         return y
 
@@ -174,10 +225,131 @@ def check_prefilter():
             'bound_ms': bound, 'bound_by': 'bytes', 'library_ms': library_ms}
 
 
+def fused_launches(arch, in_channels=2):
+    """(H, W, C, Cout, apply_normact) of every fused-kernel launch of one
+    fast U-Net forward at the patch size: the route rule of
+    ``ConvStack._forward_fused`` (a stack's first block through the kernel
+    without normact when its stride is 1 and C >= 16; every later block
+    with normact) over the flagship layout (2 blocks per stage)."""
+    feats, n = arch['features'], arch['n_stages']
+    h, w = arch['patch']
+    out, cin = [], in_channels
+    for s in range(n):
+        hs, ws = h >> s, w >> s
+        if s == 0 and cin >= 16:
+            out.append((hs, ws, cin, feats[s], False))
+        out.append((hs, ws, feats[s], feats[s], True))
+        cin = feats[s]
+    for e in range(n - 1, 0, -1):
+        hs, ws, cs = h >> (e - 1), w >> (e - 1), feats[e - 1]
+        out += [(hs, ws, 2 * cs, cs, False), (hs, ws, cs, cs, True)]
+    return out
+
+
+def fused_bounds_ms(N, H, W, C, Co):
+    """The two least times of one launch, in ms: its bytes (x, w, scale,
+    shift, b read once; y, stats written once) over HBM, and its bf16
+    operations over the tensor cores. The bound is the larger."""
+    nbytes = (N * H * W * (C + Co) * 2 + 9 * C * Co * 2 + N * C * 8 + Co * 4
+              + N * 2 * Co * 4)
+    flops = 2 * 9 * C * Co * N * H * W
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+
+
+def check_fused_block():
+    phase('kernel: fused_norm_act_conv')
+    gen = torch.Generator().manual_seed(1)
+    batch = 16  # the main path's forward batch: 4 tiles x 4 mirrors
+
+    def operands(N, H, W, C, Co):
+        x = torch.randn((N, H, W, C), generator=gen).cuda().to(torch.bfloat16)
+        sc = (torch.rand((N, C), generator=gen) + 0.5).cuda()
+        sh = (torch.randn((N, C), generator=gen) * 0.3).cuda()
+        w = (torch.randn((3, 3, C, Co), generator=gen) * (2.0 / (9 * C)) ** 0.5)
+        b = (torch.randn((Co,), generator=gen) * 0.1).cuda()
+        return x, sc, sh, FB.pack_weight(w.cuda()), b
+
+    per_forward = fused_launches(FLAGSHIP)
+    shapes = sorted(set(per_forward), key=lambda t: (-t[0], t[2], t[4]))
+    edges = [(2, 9, 8, 8, 8, True), (2, 9, 8, 8, 8, False),
+             (1, 13, 8, 24, 40, True), (2, 7, 5, 3, 5, True),
+             (3, 11, 9, 16, 100, False)]
+    cases = [(batch,) + sh for sh in shapes] + edges
+    worst, per_shape = 0.0, {}
+    for N, H, W, C, Co, act in cases:
+        args = operands(N, H, W, C, Co)
+        y, st = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
+        y2, st2 = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise SystemExit(f'fused block not bitwise repeatable at '
+                             f'{(N, H, W, C, Co, act)}')
+        ry, rst = FB.fused_norm_act_conv_plain(*args, apply_normact=act)
+        torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
+        torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
+        err = float((y.float() - ry.float()).abs().max())
+        worst = max(worst, err)
+        if (H, W, C, Co, act) not in shapes:
+            print(f'edge {(N, H, W, C, Co, act)}: max |y - plain| {err:.4g}')
+            continue
+
+        w_oihw = args[3].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b16 = args[4].to(torch.bfloat16)
+
+        def library():
+            # cuDNN's bf16 conv (channels_last) + torch normact + stats sum
+            z = args[0].float()
+            if act:
+                z = z * args[1][:, None, None, :] + args[2][:, None, None, :]
+                z = torch.where(z >= 0, z, z * 0.01)
+            out = F.conv2d(z.to(torch.bfloat16).permute(0, 3, 1, 2), w_oihw,
+                           b16, padding=1)
+            o32 = out.float()
+            return out, torch.stack([o32.sum(dim=(2, 3)),
+                                     o32.square().sum(dim=(2, 3))], dim=1)
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                        deterministic=False, allow_tf32=False):
+            ly, _ = library()
+            torch.testing.assert_close(ly.permute(0, 2, 3, 1).float(),
+                                       y.float(), rtol=0.05, atol=0.05)
+            ms = cuda_ms(lambda: FB.fused_norm_act_conv_cuda(
+                *args, apply_normact=act), 20)
+            plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
+                *args, apply_normact=act), 3)
+            library_ms = cuda_ms(library, 20)
+        t_bytes, t_ops = fused_bounds_ms(N, H, W, C, Co)
+        per_shape[(H, W, C, Co, act)] = (ms, plain_ms, library_ms, t_bytes,
+                                         t_ops)
+        print(f'{(N, H, W, C, Co, "normact" if act else "conv")}: kernel '
+              f'{ms:.4f} ms ({2 * 9 * C * Co * N * H * W / ms / 1e9:.1f} '
+              f'TFLOP/s), plain {plain_ms:.4f}, library {library_ms:.4f}, '
+              f'bound {max(t_bytes, t_ops):.5f} ms '
+              f'({"bytes" if t_bytes > t_ops else "operations"}), '
+              f'max |y - plain| {err:.4g}')
+
+    # one scan: 5 groups x one forward of the 16-tile batch
+    per_scan = [per_shape[sh] for sh in per_forward for _ in GROUPS]
+    ms, plain_ms, library_ms = (sum(t[i] for t in per_scan) for i in range(3))
+    bound = sum(max(t[3], t[4]) for t in per_scan)
+    by_ops = sum(t[4] for t in per_scan) > sum(t[3] for t in per_scan)
+    print(f'fused block, one scan ({len(per_scan)} launches): kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, '
+          f'bound {bound:.4f} ms; max |y - plain| {worst:.4g}')
+    return {'name': 'fused_norm_act_conv', 'route': 'cuda',
+            'source': 'totalsegmentator2d_tpu_torch/csrc/fused_block.cu',
+            'replaces': 'totalsegmentator2d_tpu/ops/pallas/fused_block.py:56',
+            'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': 'operations' if by_ops else 'bytes',
+            'library_ms': library_ms}, len(per_scan)
+
+
 # -- the synthetic model database -------------------------------------------
 
-def write_database(root, model, groups, arch, seed):
-    """nnU-Net results trees with random UNet weights, written by the port."""
+def write_database(root, model, groups, arch, seed, precision='exact'):
+    """nnU-Net results trees with random UNet weights, written by the port;
+    ``precision`` is one for all groups or a {group: precision} map."""
     names = iter(get_label_colors())
     for i, (group, n_labels) in enumerate(groups.items()):
         labels = [next(names) for _ in range(n_labels)]
@@ -204,8 +376,9 @@ def write_database(root, model, groups, arch, seed):
                                 'nnUNetTrainer__nnUNetPlans__2d')
         os.makedirs(os.path.join(data_dir, 'fold_0'), exist_ok=True)
         with open(os.path.join(base, 'model.json'), 'w') as f:
+            prec = precision if isinstance(precision, str) else precision[group]
             json.dump({'param': {'nnu': {'configuration': '2d', 'folds': [0],
-                                         'predict': {'precision': 'exact'}}}},
+                                         'predict': {'precision': prec}}}},
                       f)
         for fn, obj in (('plans.json', plans), ('dataset.json', dataset)):
             with open(os.path.join(data_dir, fn), 'w') as f:
@@ -248,59 +421,75 @@ def torso_ct(shape_zyx, spacing_xyz, seed):
     return MedicalImage(array=arr, spacing=spacing_xyz)
 
 
-# -- 3. the main path at full width -------------------------------------------
+# -- 3. the main paths at full width ------------------------------------------
 
-def main_path():
-    phase('main path: TS2D.predict, 5 groups / 117 labels, flagship arch')
-    db = os.path.join(WORK, 'db_flagship')
-    t0 = time.perf_counter()
-    write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
-    scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
-    print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
-
-    with TS2D(key='ts2d-v9-flagship', use_remote=False, local=db) as tool:
-        PF.bspline_prefilter_cuda.launches = 0
+def main_path(db, scan, precision, fused_per_scan):
+    """One precision's main path: launches around one scan, its result, the
+    blocking seconds per scan and a breakdown. Returns (launches, masks)."""
+    fast = precision == 'fast'
+    phase(f'main path ({precision}): TS2D.predict, 5 groups / 117 labels, '
+          f'flagship arch')
+    expect = {'bspline_prefilter': 2,
+              'fused_norm_act_conv': fused_per_scan if fast else 0}
+    with TS2D(key='ts2d-v9-flagship', use_remote=False, local=db,
+              param=FAST if fast else None) as tool:
+        if tool._fused is None or (tool._fused.compute_dtype is not None) != fast:
+            raise SystemExit(f'the {precision} set did not fuse as expected')
+        reset_launches()
         res = tool.predict(scan)
         torch.cuda.synchronize()
-        launches = {'bspline_prefilter': PF.bspline_prefilter_cuda.launches}
+        launches = read_launches()
         print(f'launches on one scan: {launches}')
-        if launches['bspline_prefilter'] != 2:
-            raise SystemExit('the prefilter kernel did not run twice per scan')
+        if launches != expect:
+            raise SystemExit(f'kernel launches per scan {launches}, expected '
+                             f'{expect}')
 
         seg = res.get_segmentation()
         if seg.ncomponents != 117 or seg.array.shape != (400, 1, 512, 117):
             raise SystemExit(f'unexpected segmentation {seg.array.shape}')
         if not 0 < seg.array.mean() < 1:
             raise SystemExit('segmentation is empty or full')
-        out = os.path.join(WORK, 'out')
-        res.save(out, name='scan', targets=['segmentation', 'projection'])
-        files = sorted(os.listdir(out))
-        if files != ['scan.seg.nrrd', 'scan_max.nrrd', 'scan_mean.nrrd']:
-            raise SystemExit(f'unexpected saved files {files}')
-        back = read_image(os.path.join(out, 'scan.seg.nrrd'))
-        if not (np.array_equal(back.array, seg.array) and back.meta == seg.meta):
-            raise SystemExit('saved segmentation does not read back equal')
-        for ch in ('max', 'mean'):
-            pb = read_image(os.path.join(out, f'scan_{ch}.nrrd'))
-            if not np.array_equal(pb.array, res.get_projection(ch).array):
-                raise SystemExit(f'saved {ch} projection does not read back equal')
-        print(f'saved and read back: {files}')
+        if fast:
+            again = tool.predict(scan).get_segmentation().array
+            if not np.array_equal(again, seg.array):
+                raise SystemExit('two fast predicts of one scan differ')
+            print('two fast predicts of the scan: identical masks')
+        else:
+            save_and_read_back(res)
 
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(5):
-            before = PF.bspline_prefilter_cuda.launches
+            reset_launches()
             t0 = time.perf_counter()
             tool.predict(scan)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            if PF.bspline_prefilter_cuda.launches - before != 2:
-                raise SystemExit('the prefilter kernel did not run twice per scan')
-        print(f'blocking s/scan: median {float(np.median(times)):.4f} '
-              f'(runs {[round(t, 4) for t in times]}); peak device memory '
+            if read_launches() != expect:
+                raise SystemExit(f'kernel launches per scan {read_launches()}')
+        print(f'blocking s/scan ({precision}): median '
+              f'{float(np.median(times)):.4f} (runs '
+              f'{[round(t, 4) for t in times]}); peak device memory '
               f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-        breakdown(tool, scan)
-    return launches
+        breakdown(tool, scan, fast)
+    return launches, seg.array
+
+
+def save_and_read_back(res):
+    seg = res.get_segmentation()
+    out = os.path.join(WORK, 'out')
+    res.save(out, name='scan', targets=['segmentation', 'projection'])
+    files = sorted(os.listdir(out))
+    if files != ['scan.seg.nrrd', 'scan_max.nrrd', 'scan_mean.nrrd']:
+        raise SystemExit(f'unexpected saved files {files}')
+    back = read_image(os.path.join(out, 'scan.seg.nrrd'))
+    if not (np.array_equal(back.array, seg.array) and back.meta == seg.meta):
+        raise SystemExit('saved segmentation does not read back equal')
+    for ch in ('max', 'mean'):
+        pb = read_image(os.path.join(out, f'scan_{ch}.nrrd'))
+        if not np.array_equal(pb.array, res.get_projection(ch).array):
+            raise SystemExit(f'saved {ch} projection does not read back equal')
+    print(f'saved and read back: {files}')
 
 
 def conv_flops(arch, h, w):
@@ -320,7 +509,7 @@ def conv_flops(arch, h, w):
     return total + 2 * feats[0] * max(GROUPS.values()) * h * w
 
 
-def breakdown(tool, scan):
+def breakdown(tool, scan, fast):
     """Where one scan's time goes: the host projection, the engine call
     (upload, device program, download, unpack), inside the program the one
     tile batch of U-Net forwards (4 tiles x 4 mirrors, all 5 groups), and a
@@ -346,10 +535,13 @@ def breakdown(tool, scan):
     with torch.no_grad(), exact_numerics():
         fwd_ms = cuda_ms(lambda: engine._net(batch), 3)
     flops = len(GROUPS) * 16 * conv_flops(FLAGSHIP, *FLAGSHIP['patch'])
+    peak, kind = ((BF16_FLOP_PER_S, 'bf16') if fast
+                  else (FP32_FLOP_PER_S, 'fp32'))
     print(f'breakdown: host projection {host_s:.4f} s; engine.predict_array '
           f'{engine_s:.4f} s, of which U-Net forwards {fwd_ms / 1e3:.4f} s '
           f'({flops / 1e12:.3f} TFLOP, {flops / fwd_ms / 1e9:.1f} TFLOP/s '
-          f'fp32; bound {flops / FP32_FLOP_PER_S * 1e3:.2f} ms at 67 TFLOP/s)')
+          f'{kind}; bound {flops / peak * 1e3:.2f} ms at '
+          f'{peak / 1e12:.0f} TFLOP/s)')
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -376,40 +568,84 @@ def breakdown(tool, scan):
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name[:70]] += e.device_time_total / 1e3
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f'  {ms:9.2f} ms  {name}')
 
 
 # -- 4. the port on the GPU against the port on the CPU ---------------------
 
-def gpu_vs_cpu():
-    phase('GPU vs CPU, reduced architecture')
+def gpu_vs_cpu(precision, bar):
+    phase(f'GPU vs CPU ({precision}), reduced architecture')
+    fast = precision == 'fast'
     db = os.path.join(WORK, 'db_small')
-    write_database(db, 'ts2d-v9-small', {'cardiac': 3, 'ribs': 4}, SMALL,
-                   seed=200)
+    if not os.path.isdir(db):
+        write_database(db, 'ts2d-v9-small', {'cardiac': 3, 'ribs': 4}, SMALL,
+                       seed=200)
     scan = torso_ct((150, 96, 110), (0.9, 0.9, 2.0), seed=11)
     segs = {}
     for device in ('cuda', 'cpu'):
-        before = PF.bspline_prefilter_cuda.launches
+        reset_launches()
         with TS2D(key='ts2d-v9-small', use_remote=False, local=db,
-                  device=device) as tool:
+                  device=device, param=FAST if fast else None) as tool:
             segs[device] = tool.predict(scan).get_segmentation().array
-        ran = PF.bspline_prefilter_cuda.launches - before
-        if ran != (2 if device == 'cuda' else 0):
-            raise SystemExit(f'{device}: {ran} prefilter kernel launches')
+        ran = read_launches()
+        on_card = device == 'cuda'
+        if (ran['bspline_prefilter'] != (2 if on_card else 0)
+                or (ran['fused_norm_act_conv'] > 0) != (on_card and fast)):
+            raise SystemExit(f'{device} ({precision}): kernel launches {ran}')
     agree = float((segs['cuda'] == segs['cpu']).mean())
-    print(f'mask agreement GPU vs CPU: {agree:.6f} '
+    print(f'mask agreement GPU vs CPU ({precision}): {agree:.6f} '
           f'(foreground {segs["cuda"].mean():.3f})')
-    if agree < 0.999:
-        raise SystemExit(f'GPU/CPU mask agreement {agree} < 0.999')
+    if agree < bar:
+        raise SystemExit(f'GPU/CPU mask agreement {agree} < {bar}')
+
+
+# -- 5. a set that does not fuse: the per-model engines ----------------------
+
+def per_model_path():
+    phase('per-model path: groups that disagree on precision')
+    db = os.path.join(WORK, 'db_mixed')
+    write_database(db, 'ts2d-v9-mixed', {'cardiac': 3, 'ribs': 4}, SMALL,
+                   seed=300, precision={'cardiac': 'fast', 'ribs': 'exact'})
+    scan = torso_ct((150, 96, 110), (0.9, 0.9, 2.0), seed=12)
+    with TS2D(key='ts2d-v9-mixed', use_remote=False, local=db) as tool:
+        if tool._fused is not None or not all(
+                m.started for m in tool.models.values()):
+            raise SystemExit('the mixed-precision set did not take the '
+                             'per-model engines')
+        reset_launches()
+        res = tool.predict(scan)
+        torch.cuda.synchronize()
+        ran = read_launches()
+    seg = res.get_segmentation()
+    print(f'per-model predict: launches {ran}; segmentation '
+          f'{seg.array.shape}, foreground {seg.array.mean():.3f}')
+    if ran['bspline_prefilter'] != 4 or ran['fused_norm_act_conv'] < 1:
+        raise SystemExit(f'per-model path kernel launches {ran}')
+    if seg.ncomponents != 7 or not 0 < seg.array.mean() < 1:
+        raise SystemExit(f'unexpected per-model segmentation {seg.array.shape}')
 
 
 def main():
     shutil.rmtree(WORK, ignore_errors=True)
     smi = device_info()
-    kernels = [check_prefilter()]
-    launches = main_path()
-    gpu_vs_cpu()
+    prefilter = check_prefilter()
+    fused, fused_per_scan = check_fused_block()
+
+    db = os.path.join(WORK, 'db_flagship')
+    t0 = time.perf_counter()
+    write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
+    scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
+    print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
+    _, exact = main_path(db, scan, 'exact', fused_per_scan)
+    launches, fast = main_path(db, scan, 'fast', fused_per_scan)
+    print(f'mask agreement fast vs exact (flagship scan): '
+          f'{float((fast == exact).mean()):.6f}')
+
+    gpu_vs_cpu('exact', 0.999)
+    gpu_vs_cpu('fast', 0.99)
+    per_model_path()
+    kernels = [prefilter, fused]
     for k in kernels:
         k['launches'] = launches[k['name']]
         if k['launches'] < 1:

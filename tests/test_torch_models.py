@@ -3,15 +3,27 @@
 InstanceNorm affines and biases) carried across by ``params_from_jax``, the
 same numpy input, NHWC logits at rtol 1e-3 / atol 1e-4 (the
 tests/test_004_models.py bar: two conv stacks with their own accumulation
-orders). The nnU-Net checkpoint loader must load the same module."""
+orders). The nnU-Net checkpoint loader must load the same module.
+
+The fast (bf16) forward is held against the reference's
+``forward(compute_dtype=bfloat16)`` with its fused block chain forced on
+inside the test (the reference gates it to TPUs; here its Pallas kernel
+runs in interpret mode) at rtol 0.1 / atol 0.05 on the logits: the
+tests/test_013_pallas.py bar for a fused stack against another bf16
+chain, as bf16 roundings land in other places."""
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tests.torch_mirror import make_spec
+from totalsegmentator2d_tpu.models import unet as JU
 from totalsegmentator2d_tpu.models.convert import params_to_state_dict
 from totalsegmentator2d_tpu.models.unet import forward, init_params_np
 from totalsegmentator2d_tpu_torch.models.convert import (load_checkpoint,
@@ -108,3 +120,74 @@ def test_untrusted_container_needs_opt_in(tmp_path, monkeypatch):
     monkeypatch.setenv('TS2D_TRUST_CHECKPOINTS', '1')
     loaded, meta = load_checkpoint(str(path))
     assert set(loaded) == set(sd) and 'init_args' in meta
+
+
+def test_no_norm_affine_skips_the_norm(rng):
+    """Without norm affines the reference's blocks are conv -> LeakyReLU
+    (no normalization): the port follows it."""
+    spec = dataclasses.replace(make_spec(**ARCHS['shallow']), norm_affine=False)
+    params = _params(spec, seed=4)
+    assert 'norm' not in params['encoder']['stages'][0][0]
+    net = UNet(spec).eval()
+    net.load_state_dict(params_from_jax(params), strict=True)
+    assert all(b.norm is None for b in net.encoder.stages[0].convs)
+    x = rng.standard_normal((2, 32, 48, spec.in_channels)).astype(np.float32)
+    ref = np.asarray(forward(params, jnp.asarray(x), spec))
+    with torch.no_grad():
+        out = net(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-4)
+
+
+FAST_ARCH = dict(in_channels=2, out_channels=4, n_stages=3,
+                 features=(8, 16, 16))
+
+
+@pytest.fixture
+def reference_fused(monkeypatch):
+    """The reference forward with its fused chain on (interpret mode)."""
+    monkeypatch.setattr(JU, 'fused_blocks_enabled', lambda: True)
+    monkeypatch.setattr(JU, '_conv_stack_fused', functools.partial(
+        JU._conv_stack_fused, interpret=True))
+
+
+@pytest.mark.parametrize('bf16_params', [False, True],
+                         ids=['fp32-params', 'bf16-params'])
+def test_fast_forward_matches_reference(rng, reference_fused, bf16_params):
+    """fp32 parameters: the per-model engine's; bf16-rounded ones: the fast
+    ensemble's. Measured worst |diff| on the CPU: 4.8e-7 (fp32 parameters)
+    and 3.4e-3 (bf16 ones) on logits up to 4.1."""
+    spec = make_spec(**FAST_ARCH)
+    params = _params(spec, seed=6)
+    x = rng.standard_normal((2, 16, 16, 2)).astype(np.float32)
+    jparams = params
+    if bf16_params:
+        jparams = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    ref = np.asarray(forward(jparams, jnp.asarray(x), spec,
+                             compute_dtype=jnp.bfloat16), np.float32)
+    net = UNet(spec).eval()
+    net.load_state_dict(params_from_jax(params, bf16=bf16_params), strict=True)
+    net.prepare_fast()
+    with torch.no_grad():
+        out = net(torch.from_numpy(x), compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.float32
+    assert out.shape == ref.shape == (2, 16, 16, 4)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0.1, atol=0.05)
+
+
+def test_fast_forward_unfused_route_matches_reference(rng):
+    """Stacks of one block (no fused chain) run the bf16 block as the
+    reference's unfused bf16 forward does."""
+    spec = dataclasses.replace(make_spec(**FAST_ARCH),
+                               n_conv_per_stage=(1, 1, 1),
+                               n_conv_per_stage_decoder=(1, 1))
+    params = _params(spec, seed=7)
+    net = UNet(spec).eval()
+    net.load_state_dict(params_from_jax(params), strict=True)
+    assert not any(st.fused for st in net.encoder.stages)
+    x = rng.standard_normal((2, 16, 16, 2)).astype(np.float32)
+    ref = np.asarray(forward(params, jnp.asarray(x), spec,
+                             compute_dtype=jnp.bfloat16), np.float32)
+    with torch.no_grad():
+        out = net(torch.from_numpy(x), compute_dtype=torch.bfloat16).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0.1, atol=0.05)

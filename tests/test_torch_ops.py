@@ -18,6 +18,7 @@ from totalsegmentator2d_tpu.ops import gaussian as JG
 from totalsegmentator2d_tpu.ops import normalize as JN
 from totalsegmentator2d_tpu.ops.resample import apply_separable, axis_weights
 from totalsegmentator2d_tpu_torch.inference import ensemble_engine as PE
+from totalsegmentator2d_tpu_torch.inference import program as PP
 from totalsegmentator2d_tpu_torch.inference import tiling as PT
 from totalsegmentator2d_tpu_torch.ops import gaussian as PG
 from totalsegmentator2d_tpu_torch.ops import normalize as PN
@@ -87,13 +88,13 @@ def test_tile_grid(shape, patch, step):
 
 
 def test_engine_host_helpers(rng):
-    assert PE._mirror_combos((0, 1)) == JEng._mirror_combos((0, 1))
-    assert (PE.compute_new_shape((400, 512), (1.25, 0.78), (1.5, 1.5))
+    assert PP._mirror_combos((0, 1)) == JEng._mirror_combos((0, 1))
+    assert (PP.compute_new_shape((400, 512), (1.25, 0.78), (1.5, 1.5))
             == JEng.compute_new_shape((400, 512), (1.25, 0.78), (1.5, 1.5))
             == (333, 266))
     arr = np.zeros((30, 20, 2), np.float32)
     arr[4:17, 3:9, 1] = rng.standard_normal((13, 6))
-    assert PE._nonzero_bbox(arr) == JEng._nonzero_bbox(arr) == ((4, 17), (3, 9))
+    assert PP._nonzero_bbox(arr) == JEng._nonzero_bbox(arr) == ((4, 17), (3, 9))
 
 
 @pytest.mark.parametrize('n_labels', [5, 8, 117])

@@ -1,14 +1,16 @@
 """Public API: the TS2D orchestrator and its Result container.
 
 The same surface as the reference tool: ``TS2D(key=...)``, ``predict()``,
-``Result.save()`` with its output naming matrix. A homogeneous model set
-(the published ts2d/tsxr sets) runs as ONE fused ensemble
-(inference/ensemble_engine.py) on the CUDA card, or on the CPU when the
-caller passes ``device='cpu'``.
+``Result.save()`` with its output naming matrix. A model set whose models
+agree on their predict settings and are all multilabel (the published
+ts2d/tsxr sets) runs as ONE fused ensemble (inference/ensemble_engine.py);
+any other set runs model by model on per-model engines
+(inference/engine.py) and merges the results, as the reference does. Both
+run on the CUDA card, or on the CPU when the caller passes
+``device='cpu'``, at the models' precision ('exact' fp32 or 'fast' bf16).
 
 Not ported yet, and raising when asked for: the remote model registry
-(``use_remote=True``), heterogeneous model sets (the per-model engine), PNG
-visuals, async/batched prediction.
+(``use_remote=True``), PNG visuals, async/batched prediction.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .inference.ensemble_engine import EnsembleEngine
 from .inference.model import HostedModel
 from .inference.zoo import Zoo
 from .io import MedicalImage, read_image, write_image
-from .ops.annotations import set_annotation_meta
+from .ops.annotations import combine_segmentations, set_annotation_meta
 from .ops.geometry import reduce_dimensions, reorient, restore_dimension
 from .ops.projection import project_multi
 from .utils.config import get_label_colors
@@ -81,27 +83,43 @@ class TS2D:
             self.models[id_] = model
         self._fused = self._build_fused()
 
-    def _build_fused(self) -> EnsembleEngine:
+    def _build_fused(self) -> Optional[EnsembleEngine]:
+        """The fused ensemble, or None when the models do not fuse: not all
+        multilabel, other input channels, or disagreeing predict settings
+        (step size, mirroring and its axes, precision) or architectures.
+        Those sets run on per-model engines, which start here."""
         models = list(self.models.values())
         for m in models:
             m.load_fold_params()  # also refines spec with mirror axes
         ref = models[0]
-        homogeneous = (
+        fuse = (
             all(m.spec.multilabel for m in models)
             and all(m.channels == ref.channels for m in models)
             and all(m.tile_step_size == ref.tile_step_size
                     and m.use_mirroring == ref.use_mirroring
+                    and m.compute_dtype() == ref.compute_dtype()
                     and m.spec.allowed_mirroring_axes
                     == ref.spec.allowed_mirroring_axes for m in models))
-        if not homogeneous:
-            raise NotImplementedError(
-                'Model sets that do not fuse into one ensemble (the per-model '
-                'engine of the reference package) are not ported yet')
-        return EnsembleEngine(
-            [m.spec for m in models], [m.load_fold_params() for m in models],
-            tile_step_size=(ref.tile_step_size
-                            if ref.tile_step_size is not None else 0.5),
-            use_mirroring=ref.use_mirroring, device=self.device)
+        engine = None
+        if fuse:
+            try:
+                engine = EnsembleEngine(
+                    [m.spec for m in models],
+                    [m.load_fold_params() for m in models],
+                    tile_step_size=(ref.tile_step_size
+                                    if ref.tile_step_size is not None else 0.5),
+                    use_mirroring=ref.use_mirroring,
+                    compute_dtype=ref.compute_dtype(), device=self.device)
+            except ValueError as ex:  # preprocessing or architecture differ
+                log(f'Fused ensemble unavailable ({ex}); using per-model '
+                    f'engines.')
+        else:
+            log('Fused ensemble unavailable (models disagree on predict '
+                'settings or are not all multilabel); using per-model engines.')
+        if engine is None:
+            for m in models:
+                m.start(self.device)
+        return engine
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -113,6 +131,8 @@ class TS2D:
 
     def close(self) -> None:
         """Release the models and their device memory."""
+        for model in self.models.values():
+            model.stop()
         self.models = {}
         self._fused = None
 
@@ -133,9 +153,10 @@ class TS2D:
         """Predict the segmentation for an image (path or MedicalImage).
 
         3D inputs are reoriented to RAI and projected on the host (one
-        channel per model input: MIP, AIP), then the fused ensemble runs
-        on the cropped 2D image; per-model results are channel slices of
-        the merged output.
+        channel per model input: MIP, AIP). A fused set then runs the
+        ensemble once on the cropped 2D image, and per-model results are
+        channel slices of the merged output; any other set runs each model
+        on its own engine and merges their segmentations.
 
         :param collapse: collapse outputs to true 2D, discarding the 3D
             size-1-axis geometry
@@ -148,34 +169,79 @@ class TS2D:
             raise RuntimeError(
                 f'input must be a string path or a MedicalImage, found: '
                 f'{type(input).__name__}')
-        if self._fused is None:
+        if not self.models:
             raise RuntimeError('This TS2D instance is closed')
-        original = input
-        models = list(self.models.items())
-        channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
+        cache: dict = {}
+        if self._fused is not None:
+            result = self._predict_fused(input, collapse, merge, cache)
+        else:
+            result = {'models': {
+                id_: self._predict_model(id_, model, input, collapse, cache)
+                for id_, model in self.models.items()}}
+            if merge:
+                segs = [r['segmentation'] for r in result['models'].values()]
+                result['segmentation'] = (segs[0] if len(segs) == 1
+                                          else combine_segmentations(segs))
+        result['input'] = input
+        if cache.get('projections'):
+            result['projections'] = cache['projections']
+        return TS2D.Result(result)
+
+    @staticmethod
+    def _model_input(original: MedicalImage, id_: str, channels: list,
+                     cache: dict) -> MedicalImage:
+        """The image a model reads. A 3D input is reoriented to RAI (once)
+        and projected along the coronal axis, one projection per channel
+        mode, each computed once and kept in ``cache['projections']``; a 2D
+        input is used as it is, its channels kept as ``ch<i>``."""
         if not channels:
             raise RuntimeError(
-                f'Model {models[0][0]} does not have a channel definition, '
-                f'cannot project the input image.')
-
-        projections: dict = {}
+                f'Model {id_} does not have a channel definition, cannot '
+                f'project the input image.')
+        projections = cache.setdefault('projections', {})
         if original.actual_dimension() > 2:
-            oriented = reorient(original, 'RAI')
-            ch_list = project_multi(oriented, [n for _, n in channels],
-                                    axis='coronal')
-            projections.update(
-                (name, pimg) for (_, name), pimg in zip(channels, ch_list))
-            model_input = MedicalImage.compose(ch_list) if len(ch_list) > 1 \
+            if 'oriented' not in cache:
+                cache['oriented'] = reorient(original, 'RAI')
+            todo = [n for _, n in channels if n not in projections]
+            projections.update(zip(todo, project_multi(
+                cache['oriented'], todo, axis='coronal')))
+            ch_list = [projections[n] for _, n in channels]
+            return MedicalImage.compose(ch_list) if len(ch_list) > 1 \
                 else ch_list[0]
-        else:
-            if len(channels) != original.ncomponents:
-                raise RuntimeError(
-                    f'The number of channels in the input image does not '
-                    f'match the models channel definition '
-                    f'({len(channels)} vs {original.ncomponents}).')
-            projections.update((f'ch{i}', ch) for i, ch in
-                               enumerate(original.split_channels()))
-            model_input = original
+        if len(channels) != original.ncomponents:
+            raise RuntimeError(
+                f'The number of channels in the input image does not '
+                f'match the models channel definition '
+                f'({len(channels)} vs {original.ncomponents}).')
+        projections.update((f'ch{i}', ch) for i, ch in
+                           enumerate(original.split_channels()))
+        return original
+
+    def _predict_model(self, id_: str, model: HostedModel,
+                       original: MedicalImage, collapse: bool,
+                       cache: dict) -> dict:
+        """One model of a set that does not fuse, on its own engine."""
+        channels = sorted(model.channels.items(), key=lambda kv: kv[0])
+        model_input = self._model_input(original, id_, channels, cache)
+        native_2d = model_input.dim < 3
+        input2d = model_input if native_2d else reduce_dimensions(model_input)
+        seg = model.apply(input2d)
+        if not (collapse or native_2d):
+            seg = restore_dimension(seg, model_input)
+        mname, mgroup = decompose_model_key(id_)
+        return {'id': id_, 'model': mname, 'group': mgroup,
+                'revision': model.revision,
+                'input': input2d if collapse else model_input,
+                'segmentation': seg}
+
+    def _predict_fused(self, original: MedicalImage, collapse: bool,
+                       merge: bool, cache: dict) -> dict:
+        """The fused set: one ensemble run on the cropped 2D image; each
+        model's segmentation is its slice of the merged channels."""
+        models = list(self.models.items())
+        channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
+        model_input = self._model_input(original, models[0][0], channels,
+                                        cache)
         native_2d = model_input.dim < 3
         input2d = model_input if native_2d else reduce_dimensions(model_input)
         arr = input2d.array
@@ -217,11 +283,7 @@ class TS2D:
             if not (collapse or native_2d):
                 seg_all = restore_dimension(seg_all, model_input)
             result['segmentation'] = seg_all
-
-        result['input'] = original
-        if projections:
-            result['projections'] = projections
-        return TS2D.Result(result)
+        return result
 
     # -- results ------------------------------------------------------------
 

@@ -8,10 +8,8 @@
 //   anticausal c[n-1] = (z*s[n-2] + s[n-1]) * z/(z^2-1)
 //              c[i]   = z*(c[i+1] - s[i])
 //
-// One difference, on purpose: the series runs to the full horizon (18 taps
-// for tol 1e-10), the mirror index wrapping with period 2n-2. The TPU
-// kernel caps it at 2n-2 taps, which truncates it for n < 10; the two agree
-// for n >= 10, and the full series matches scipy for every n >= 2.
+// The caller passes horizon = min(18, 2n-2) taps (18 for tol 1e-10), the
+// mirror index wrapping with period 2n-2, as the TPU kernel does.
 //
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn keep
 // nvcc from contracting them into FMAs), so the kernel reproduces its plain

@@ -1,63 +1,29 @@
 """EnsembleEngine: all anatomical-group models and folds on one scan.
 
-The solo "exact" program of the reference package, in eager PyTorch:
+The solo program of the reference package (inference/program.py) with the
+G x F U-Nets of every group run one after another on the same tile batch,
+the fold mean per group, then a per-group sigmoid>0.5 (or argmax), the
+117-channel concat and bit-packing on the device.
 
-    normalize -> B-spline prefilter + matmul down-resample to plan spacing
-    -> symmetric pad -> tile x TTA batched forwards of the G x F U-Nets
-    (one after another on the same tile batch, then the fold mean)
-    -> Gaussian overlap-add -> weight normalization -> un-pad
-    -> order-1 up-resample -> per-group sigmoid>0.5 (or argmax)
-    -> 117-channel concat + bit-packing on the device
-
-The program runs fp32 under :func:`~..utils.device.exact_numerics` (no
-TF32, fixed cuDNN algorithms). Inputs upload as float32.
+``compute_dtype=None`` is the exact fp32 program; ``torch.bfloat16`` the
+fast one, whose U-Nets run bf16 (models/unet.py) with every parameter
+rounded to bf16 first, as the reference's fast ensemble stores them
+(``ensemble_engine.py:438-443`` there).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.convert import load_into
+from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
-from ..ops.gaussian import gaussian_map
-from ..ops.normalize import nonzero_norm_mask, normalize_channels
-from ..ops.resample import apply_separable, axis_weights, bspline_prefilter
-from ..utils.device import exact_numerics, resolve_device
-from ..utils.logging import log
-from .tiling import accumulate_tiles, pad_amounts, padded_shape, tile_positions
-
-
-def _mirror_combos(axes: Sequence[int]) -> List[Tuple[int, ...]]:
-    """All subsets of the allowed mirror axes (identity first).
-    Axes are spatial: 0 = y, 1 = x."""
-    combos: List[Tuple[int, ...]] = [()]
-    for ax in axes:
-        combos += [c + (ax,) for c in combos]
-    return combos
-
-
-def compute_new_shape(shape: Sequence[int], old_spacing: Sequence[float],
-                      new_spacing: Sequence[float]) -> Tuple[int, ...]:
-    """nnU-Net target shape: round(shape * old / new)."""
-    return tuple(int(round(n * o / s))
-                 for n, o, s in zip(shape, old_spacing, new_spacing))
-
-
-def _nonzero_bbox(arr: np.ndarray) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """Bounding box of non-zero pixels over all channels; the full image if
-    everything is zero."""
-    mask = np.any(arr != 0, axis=-1) if arr.ndim == 3 else (arr != 0)
-    ys, xs = np.nonzero(mask)
-    if ys.size == 0:
-        return (0, arr.shape[0]), (0, arr.shape[1])
-    return ((int(ys.min()), int(ys.max()) + 1),
-            (int(xs.min()), int(xs.max()) + 1))
+from .program import ScanEngine
 
 
 def pad_head(sd: Dict[str, torch.Tensor], n_labels: int,
@@ -96,25 +62,28 @@ def unpack_bits(packed: np.ndarray, n_labels: int) -> np.ndarray:
     return bits[..., :n_labels]
 
 
-class EnsembleEngine:
+class EnsembleEngine(ScanEngine):
     """Fused multi-group multi-fold inference.
 
     :param specs: per-group ModelSpecs; architectures must match except for
         the segmentation-head width, and preprocessing must be identical
     :param group_fold_params: state_dicts[group][fold] of the UNet module
+    :param compute_dtype: ``None`` (exact) or ``torch.bfloat16`` (fast)
     :param device: ``None`` = the CUDA card (raises without one); pass
         ``'cpu'`` to run on the CPU
     """
 
+    kind = 'ensemble'
+
     def __init__(self, specs: Sequence[ModelSpec],
                  group_fold_params: Sequence[Sequence[Dict[str, torch.Tensor]]],
                  tile_step_size: float = 0.5, use_mirroring: bool = True,
-                 device=None):
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
         if not specs:
             raise ValueError('At least one group is required')
-        self.device = resolve_device(device)
+        super().__init__(specs[0], tile_step_size, use_mirroring,
+                         compute_dtype, device)
         self.specs = list(specs)
-        self.spec = specs[0]
         head_free = dataclasses.replace(self.spec.arch, out_channels=0)
         for s in specs[1:]:
             if s.preprocess != self.spec.preprocess:
@@ -140,20 +109,18 @@ class EnsembleEngine:
         self.n_folds = len(group_fold_params[0])
         if any(len(f) != self.n_folds for f in group_fold_params):
             raise ValueError('All groups must provide the same fold count')
-        self.tile_step_size = float(tile_step_size)
-        self.use_mirroring = bool(use_mirroring)
+        self.acc_prefix = (self.n_groups, self.max_labels)
 
         arch = dataclasses.replace(self.spec.arch, out_channels=self.max_labels)
         self.models: List[List[UNet]] = []
         for g, folds in enumerate(group_fold_params):
             row = []
             for sd in folds:
-                net = UNet(arch)
-                load_into(net, pad_head(sd, self.label_counts[g],
-                                        self.max_labels))
-                row.append(net.to(self.device).eval())
+                sd = pad_head(sd, self.label_counts[g], self.max_labels)
+                if compute_dtype is not None:
+                    sd = round_to_bf16(sd)
+                row.append(self._load_net(arch, sd))
             self.models.append(row)
-        self._cache: Dict[Tuple, object] = {}
 
     @property
     def total_labels(self) -> int:
@@ -177,109 +144,22 @@ class EnsembleEngine:
         """(B, C, ph, pw) -> (G, B, Lp, ph, pw): every group's fold mean."""
         outs = []
         for folds in self.models:
-            logits = [m.forward_nchw(batch) for m in folds]
+            logits = [m.forward_nchw(batch, self.compute_dtype) for m in folds]
             outs.append(torch.stack(logits).mean(dim=0))
         return torch.stack(outs)
 
-    def _build(self, in_shape: Tuple[int, int], in_spacing: Tuple[float, float]):
-        spec = self.spec
-        pre = spec.preprocess
-        patch = tuple(pre.patch_size)
-        dev = self.device
+    def _decide(self, logits: torch.Tensor) -> torch.Tensor:
+        """(G, Lp, H, W) -> (H, W, ceil(L/8)) packed per-group decisions,
+        channels last."""
+        parts = []
+        for g, n in enumerate(self.label_counts):
+            lg = logits[g, :n].permute(1, 2, 0)
+            if self.specs[g].multilabel:
+                parts.append((torch.sigmoid(lg) > 0.5).to(torch.uint8))
+            else:
+                parts.append(F.one_hot(torch.argmax(lg, dim=-1), n)
+                             .to(torch.uint8)[..., 1:])
+        return _pack_bits(torch.cat(parts, dim=-1))
 
-        rs_shape = compute_new_shape(in_shape, in_spacing, pre.spacing)
-        pad_shape = padded_shape(rs_shape, patch)
-        pads = pad_amounts(rs_shape, pad_shape)
-        tiles = tile_positions(pad_shape, patch, self.tile_step_size)
-        mirrors = _mirror_combos(spec.allowed_mirroring_axes
-                                 if self.use_mirroring else ())
-        gauss = torch.tensor(gaussian_map(patch), device=dev)
-
-        def _w(n_in, n_out, order):
-            if n_in == n_out:
-                return None
-            coords = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-            return torch.tensor(axis_weights(n_in, coords, order, outside='edge'),
-                                dtype=torch.float32, device=dev)
-
-        w_down = [_w(in_shape[k], rs_shape[k], 3) for k in range(2)]
-        w_up = [_w(rs_shape[k], in_shape[k], 1) for k in range(2)]
-        down_axes = [k for k in range(2) if w_down[k] is not None]
-        G, Lp = self.n_groups, self.max_labels
-
-        def program(arr: torch.Tensor,
-                    nz_mask: Optional[torch.Tensor]) -> torch.Tensor:
-            # arr: (H, W, C) float32 on the device -> (H, W, ceil(L/8)) uint8
-            work = normalize_channels(arr, pre, nz_mask)
-            if down_axes:
-                work = bspline_prefilter(work, down_axes)
-                work = apply_separable(work, w_down, axes=(0, 1))
-            work = F.pad(work.permute(2, 0, 1),
-                         (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
-            acc = torch.zeros((G, Lp) + pad_shape, device=dev)
-            wacc = torch.zeros((1,) + pad_shape, device=dev)
-            accumulate_tiles(work, tiles, self._net, acc, wacc, patch=patch,
-                             mirrors=mirrors, gauss=gauss)
-            logits = acc / torch.clamp(wacc, min=1e-8)
-            logits = logits[:, :, pads[0][0]:pads[0][0] + rs_shape[0],
-                            pads[1][0]:pads[1][0] + rs_shape[1]]
-            logits = apply_separable(logits, w_up, axes=(2, 3))
-            # per-group decision + multilabel concat, channels last
-            parts = []
-            for g, n in enumerate(self.label_counts):
-                lg = logits[g, :n].permute(1, 2, 0)
-                if self.specs[g].multilabel:
-                    parts.append((torch.sigmoid(lg) > 0.5).to(torch.uint8))
-                else:
-                    parts.append(F.one_hot(torch.argmax(lg, dim=-1), n)
-                                 .to(torch.uint8)[..., 1:])
-            return _pack_bits(torch.cat(parts, dim=-1))
-
-        return program, {'n_tiles': len(tiles), 'n_mirror': len(mirrors)}
-
-    def _program(self, in_shape, in_spacing):
-        key = (tuple(in_shape), tuple(round(float(s), 6) for s in in_spacing))
-        hit = self._cache.get(key)
-        if hit is None:
-            hit = self._build(tuple(in_shape), tuple(in_spacing))
-            self._cache[key] = hit
-            log(f'prepared ensemble program for shape={key[0]} '
-                f'({self.n_groups} groups, {hit[1]["n_tiles"]} tiles, '
-                f'{hit[1]["n_mirror"]} mirrors, {self.n_folds} folds, '
-                f'{self.device})')
-        return hit[0]
-
-    # -- host API -----------------------------------------------------------
-
-    def _place(self, seg_c: np.ndarray, bbox, full) -> np.ndarray:
-        """Re-embed a cropped seg into the full input extent."""
-        (y0, y1), (x0, x1) = bbox
-        if seg_c.shape[:2] != tuple(full):
-            seg = np.zeros(tuple(full) + (seg_c.shape[-1],), np.uint8)
-            seg[y0:y1, x0:x1] = seg_c
-            return seg
-        return seg_c
-
-    def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
-                      ) -> np.ndarray:
-        """(H, W, C) float array -> (H, W, sum(labels)) merged multilabel
-        one-hot uint8. Crops to the nonzero bounding box first (nnU-Net
-        crop_to_nonzero)."""
-        if arr.ndim == 2:
-            arr = arr[..., None]
-        if arr.shape[-1] != self.spec.arch.in_channels:
-            raise ValueError(
-                f'Input has {arr.shape[-1]} channels; the models expect '
-                f'{self.spec.arch.in_channels}')
-        bbox = _nonzero_bbox(arr)
-        (y0, y1), (x0, x1) = bbox
-        cropped = np.ascontiguousarray(arr[y0:y1, x0:x1], np.float32)
-        program = self._program(cropped.shape[:2], spacing_yx)
-        x = torch.from_numpy(cropped).to(self.device)
-        mask = None
-        if any(self.spec.preprocess.use_mask_for_norm):
-            mask = torch.from_numpy(nonzero_norm_mask(cropped)).to(self.device)
-        with torch.no_grad(), exact_numerics():
-            packed = program(x, mask).cpu().numpy()
-        return self._place(unpack_bits(packed, self.total_labels), bbox,
-                           arr.shape[:2])
+    def _finish(self, out: np.ndarray) -> np.ndarray:
+        return unpack_bits(out, self.total_labels)

@@ -5,6 +5,12 @@ fold_N/checkpoint_<name>.pth), parses the spec and loads the fold weights.
 Configuration uses the reference tool's dot-key namespace: nnu.configuration,
 nnu.folds, nnu.plans, nnu.trainer, nnu.task, nnu.version,
 nnu.predict.{augment,stepsize,checkpoint,precision}, nnu.result.colors.
+
+A model that does not fuse into the ensemble of its set runs on its own
+per-model engine (inference/engine.py): :meth:`HostedModel.start` loads it
+onto the device and :meth:`HostedModel.apply` segments a 2D image with it.
+The reference starts its engines on a thread; here :meth:`start` loads
+synchronously.
 """
 
 from __future__ import annotations
@@ -13,13 +19,17 @@ import os
 import re
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from ..io.image import MedicalImage
 from ..models.convert import load_checkpoint
 from ..models.plans import ModelSpec, parse_model_spec
+from ..ops.annotations import set_annotation_meta
 from ..utils.files import read_json
 from ..utils.logging import warn
 from ..utils.params import dict_get
+from .engine import InferenceEngine
 
 
 def find_datasets(root: str, version: Optional[int] = None) -> Dict[int, str]:
@@ -56,15 +66,13 @@ class HostedModel:
                                       default=True, dtype=bool)
         self.tile_step_size = dict_get(param, 'nnu.predict.stepsize',
                                        default=None, dtype=float)
-        # 'exact' = fp32 everywhere; the bf16 'fast' class is not ported yet
+        # 'exact' = fp32 everywhere; 'fast' = bf16 conv operands with fp32
+        # accumulation and norm statistics
         self.precision = dict_get(param, 'nnu.predict.precision',
                                   default='exact', dtype=str)
-        if str(self.precision).lower() in ('fast', 'bf16', 'bfloat16'):
-            raise NotImplementedError(
-                f"Model {self.id}: precision {self.precision!r} (bf16) is not "
-                f"ported to the PyTorch package yet; use 'exact'")
         self.result_colors = dict_get(param, 'nnu.result.colors', default='ts2d')
         self._fold_params: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._engine: Optional[InferenceEngine] = None
         self._configure(config['root'])
 
     def _configure(self, root: str) -> None:
@@ -151,6 +159,67 @@ class HostedModel:
                                  list(axes_seen[0][1])})
         self._fold_params = fold_params
         return fold_params
+
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """``torch.bfloat16`` for precision 'fast' (or 'bf16', 'bfloat16'),
+        else ``None`` (exact)."""
+        if str(self.precision).lower() in ('fast', 'bf16', 'bfloat16'):
+            return torch.bfloat16
+        return None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def _load_engine(self, device=None) -> InferenceEngine:
+        return InferenceEngine(
+            self.spec, self.load_fold_params(),
+            tile_step_size=(self.tile_step_size
+                            if self.tile_step_size is not None else 0.5),
+            use_mirroring=self.use_mirroring,
+            compute_dtype=self.compute_dtype(), device=device)
+
+    def start(self, device=None) -> None:
+        """Load the per-model engine onto ``device`` (``None`` = the CUDA
+        card; ``'cpu'`` runs on the CPU); a started model stays as it is."""
+        if self._engine is None:
+            self._engine = self._load_engine(device)
+
+    def stop(self) -> None:
+        """Release the engine and its device memory."""
+        self._engine = None
+
+    @property
+    def started(self) -> bool:
+        return self._engine is not None
+
+    # -- prediction ----------------------------------------------------------
+
+    def apply(self, img: MedicalImage) -> MedicalImage:
+        """Segment a 2D (possibly multi-channel) image: a multilabel one-hot
+        vector image (a labelmap for a softmax model) with Segment metadata,
+        in the input geometry. Starts the engine on the CUDA card if
+        :meth:`start` was not called."""
+        self.start()
+        if img.dim != 2:
+            raise ValueError(f'apply() expects a 2D image, got dim={img.dim}')
+        arr = img.array
+        if not img.is_vector:
+            arr = arr[..., None]
+        if arr.shape[-1] != self.spec.arch.in_channels:
+            raise ValueError(
+                f'The number of channels in the input image does not match '
+                f'the model channel definition '
+                f'({self.spec.arch.in_channels} vs {arr.shape[-1]}).')
+        spacing_yx = tuple(reversed(img.spacing))  # array-order spacing
+        seg = self._engine.predict_array(arr.astype(np.float32), spacing_yx)
+        palette = self.get_colors()
+        colors = {}
+        for n in self.labels.values():
+            c = palette.get(n) or palette.get(str(n).lower())
+            if c is not None:
+                colors[n] = c
+        out = img.replace(array=seg, is_vector=self.multilabel, meta={})
+        set_annotation_meta(out, names=self.labels, colors=colors)
+        return out
 
     def __repr__(self) -> str:
         return (f'HostedModel({self.id!r}, folds={self.folds}, '

@@ -10,6 +10,9 @@
  - :func:`params_from_jax` carries the reference package's params pytree
    (numpy arrays; conv weights HWIO, transposed-conv weights HWOI) across,
    so both implementations can run the same weights.
+ - :func:`round_to_bf16` rounds every parameter to bf16 (kept as float32
+   tensors): the reference's fast ``EnsembleEngine`` stores all its
+   parameters in bf16, norm affines and biases included.
 """
 
 from __future__ import annotations
@@ -79,9 +82,18 @@ def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
                           strict=True)
 
 
-def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+def round_to_bf16(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every entry rounded to the nearest bf16 value, as float32: the same
+    numbers as the reference's bf16-stored parameters (fp32 arithmetic on
+    a bf16 operand promotes it exactly)."""
+    return {k: v.to(torch.bfloat16).float() for k, v in sd.items()}
+
+
+def params_from_jax(params: dict, bf16: bool = False) -> Dict[str, torch.Tensor]:
     """The reference package's params pytree (numpy leaves) -> a UNet
-    state dict."""
+    state dict. ``bf16=True`` gives the parameters of the reference's fast
+    ``EnsembleEngine`` (:func:`round_to_bf16`); its per-model fast engine
+    keeps them float32."""
     sd: Dict[str, torch.Tensor] = {}
 
     def t(a, perm=None):
@@ -113,4 +125,4 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         sd[f'decoder.seg_layers.{d}.weight'] = t(sl['w'], (3, 2, 0, 1))
         if 'b' in sl:
             sd[f'decoder.seg_layers.{d}.bias'] = t(sl['b'])
-    return sd
+    return round_to_bf16(sd) if bf16 else sd

@@ -6,15 +6,16 @@ Replaces the Pallas TPU kernel of the reference package
 versions here compute exactly its recursion, in float32:
 
     causal      s[i] = g*x[i] + z*s[i-1]     z = sqrt(3)-2, g = (1-z)(1-1/z)
-                s[0] = g * sum_{k<=HORIZON} z^k x[mirror(k)]
+                s[0] = g * sum_{k<=horizon} z^k x[mirror(k)]
     anticausal  c[n-1] = (z*s[n-2] + s[n-1]) * z/(z^2-1)
                 c[i]   = z*(c[i+1] - s[i])
 
-with ``HORIZON = ceil(log 1e-10 / log|z|) = 18`` taps, the mirror index
-wrapping with period 2n-2. The reference caps the series at 2n-2 taps,
-which truncates it for n < 10 (up to 6e-3 off scipy at n = 2); the full
-series is exact to 1e-10 for every n >= 2 and identical to the reference's
-for n >= 10.
+with ``horizon = min(HORIZON, 2n-2)`` taps, ``HORIZON = ceil(log 1e-10 /
+log|z|) = 18`` and the mirror index wrapping with period 2n-2: the
+reference's series (its ``ops/resample.py:72`` and
+``ops/pallas/prefilter.py:104``). For n < 10 that cap truncates the series
+short of the tolerance (6.4e-3 off scipy at n = 2); the port keeps the
+reference's result.
 
 :func:`prefilter_axis` is the entry point: it launches the kernel for a CUDA
 tensor (or raises) and takes the plain version only for a CPU tensor.
@@ -33,6 +34,11 @@ _Z = float(np.sqrt(3.0) - 2.0)
 _GAIN = (1.0 - _Z) * (1.0 - 1.0 / _Z)
 # taps of the causal-init series: |z|^HORIZON <= 1e-10
 HORIZON = int(math.ceil(math.log(1e-10) / math.log(abs(_Z))))
+
+
+def horizon(n: int) -> int:
+    """Taps of the causal-init series for a line of n samples."""
+    return min(HORIZON, 2 * n - 2)
 
 
 def _f32(v: float) -> float:
@@ -71,7 +77,7 @@ def bspline_prefilter_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
     z, gain = _f32(_Z), _f32(_GAIN)
     s = v[:, 0] * gain
     zk = 1.0
-    for k in range(1, HORIZON + 1):
+    for k in range(1, horizon(n) + 1):
         zk *= _Z
         s = s + v[:, _mirror_index(k, n)] * _f32(_GAIN * zk)
     y[:, 0] = s
@@ -113,7 +119,8 @@ def bspline_prefilter_cuda(x: torch.Tensor, axis: int) -> torch.Tensor:
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), outer, n, inner, HORIZON, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), outer, n, inner, horizon(n),
+                 stream)
     if err != 0:
         raise RuntimeError(f'prefilter kernel launch failed: CUDA error {err}')
     bspline_prefilter_cuda.launches += 1
