@@ -9,7 +9,11 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes, with bitwise-repeat
    checks; kernel, plain and library-yardstick times with CUDA events, and
-   each kernel's bound at those shapes.
+   each kernel's bound at those shapes. The fused block's kernel and
+   library times are device times (a CUDA graph of 20 calls, replayed; the
+   library the best of 3 rounds under cuDNN's benchmark mode), beside the
+   kernel's eager per-call time; its tile choices at the small deep shapes
+   and each instantiation's registers, shared memory and blocks per SM.
 3. The main paths at full width: ``TS2D(...).predict(scan)`` with a random
    5-group / 117-label flagship ensemble (6-stage nnU-Net, features
    32..512, patch 256^2) on a clinical-spacing torso phantom CT
@@ -17,7 +21,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    First at precision 'exact' (fp32), then at 'fast' (bf16 U-Nets through
    the fused block kernel); each with the kernels' launch counts set to 0
    just before one scan and read just after, the blocking seconds per scan
-   and a breakdown of one scan (host, engine, U-Net forwards, a profiler
+   and a breakdown of one scan (host, engine, U-Net forwards eager, best
+   of 3 rounds, and in device time by CUDA-graph replay, a profiler
    trace). The exact result is saved and read back; two fast scans must
    give the same masks, and the fast/exact mask agreement is printed.
 4. The port on the GPU against the port on the CPU (plain kernel versions)
@@ -39,6 +44,7 @@ if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device available', file=sys.stderr)
     sys.exit(1)
 
+import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -256,6 +262,51 @@ def fused_bounds_ms(N, H, W, C, Co):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
 
 
+def device_ms(fn, iters, rounds=1):
+    """Device milliseconds of one fn() call, without the host's launch
+    overhead: fn() once eagerly (warm-up, and any algorithm search), then a
+    CUDA graph of `iters` calls replayed `rounds` times, each round timed by
+    CUDA events. Returns (best round, every round)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return min(times), times
+
+
+# edge shapes of the kernel's tiling and padding: W below the tile width,
+# H and W not multiples of the tile, N = 1, channel counts it takes only
+# zero-padded (C = 3, 8, 16, 24; Cout = 5, 40, 100)
+FUSED_EDGES = [(2, 9, 8, 8, 8, True), (2, 9, 8, 8, 8, False),
+               (1, 13, 8, 24, 40, True), (2, 7, 5, 3, 5, True),
+               (3, 11, 9, 16, 100, False), (2, 20, 5, 32, 32, True),
+               (2, 12, 12, 64, 64, True), (2, 37, 45, 64, 128, True),
+               (1, 19, 23, 32, 32, False), (2, 9, 11, 16, 100, True),
+               (2, 5, 7, 3, 100, True), (2, 37, 45, 32, 32, True),
+               (1, 40, 5, 64, 32, False)]
+# the small deep shapes, at each tile choice: BN, and split K (a second pass
+# adds the input-channel ranges); the automatic choice is the first
+FUSED_CHOICES = {(8, 8, 512, 512, True): [(64, 1), (128, 1), (128, 2),
+                                          (64, 2), (128, 4)],
+                 (16, 16, 512, 512, True): [(128, 1), (64, 1), (128, 2)],
+                 (16, 16, 1024, 512, False): [(128, 1), (64, 1), (128, 2),
+                                              (128, 4)]}
+
+
 def check_fused_block():
     phase('kernel: fused_norm_act_conv')
     gen = torch.Generator().manual_seed(1)
@@ -269,30 +320,31 @@ def check_fused_block():
         b = (torch.randn((Co,), generator=gen) * 0.1).cuda()
         return x, sc, sh, FB.pack_weight(w.cuda()), b
 
-    per_forward = fused_launches(FLAGSHIP)
-    shapes = sorted(set(per_forward), key=lambda t: (-t[0], t[2], t[4]))
-    edges = [(2, 9, 8, 8, 8, True), (2, 9, 8, 8, 8, False),
-             (1, 13, 8, 24, 40, True), (2, 7, 5, 3, 5, True),
-             (3, 11, 9, 16, 100, False)]
-    cases = [(batch,) + sh for sh in shapes] + edges
-    worst, per_shape = 0.0, {}
-    for N, H, W, C, Co, act in cases:
-        args = operands(N, H, W, C, Co)
-        y, st = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
-        y2, st2 = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
+    def check(args, act, **tile):
+        """The kernel against its plain version, and two runs bitwise."""
+        y, st = FB.fused_norm_act_conv_cuda(*args, apply_normact=act, **tile)
+        y2, st2 = FB.fused_norm_act_conv_cuda(*args, apply_normact=act, **tile)
         torch.cuda.synchronize()
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
             raise SystemExit(f'fused block not bitwise repeatable at '
-                             f'{(N, H, W, C, Co, act)}')
+                             f'{tuple(args[0].shape)}, {tile}')
         ry, rst = FB.fused_norm_act_conv_plain(*args, apply_normact=act)
         torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
         torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
-        err = float((y.float() - ry.float()).abs().max())
-        worst = max(worst, err)
-        if (H, W, C, Co, act) not in shapes:
-            print(f'edge {(N, H, W, C, Co, act)}: max |y - plain| {err:.4g}')
-            continue
+        return y, float((y.float() - ry.float()).abs().max())
 
+    per_forward = fused_launches(FLAGSHIP)
+    shapes = sorted(set(per_forward), key=lambda t: (-t[0], t[2], t[4]))
+    worst, per_shape = 0.0, {}
+    for N, H, W, C, Co, act in FUSED_EDGES:
+        _, err = check(operands(N, H, W, C, Co), act)
+        worst = max(worst, err)
+        print(f'edge {(N, H, W, C, Co, act)}: max |y - plain| {err:.4g}')
+    for H, W, C, Co, act in shapes:
+        N = batch
+        args = operands(N, H, W, C, Co)
+        y, err = check(args, act)
+        worst = max(worst, err)
         w_oihw = args[3].permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         b16 = args[4].to(torch.bfloat16)
@@ -309,33 +361,61 @@ def check_fused_block():
             return out, torch.stack([o32.sum(dim=(2, 3)),
                                      o32.square().sum(dim=(2, 3))], dim=1)
 
+        def kernel(**tile):
+            return FB.fused_norm_act_conv_cuda(*args, apply_normact=act,
+                                               **tile)
+
         with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                         deterministic=False, allow_tf32=False):
             ly, _ = library()
             torch.testing.assert_close(ly.permute(0, 2, 3, 1).float(),
                                        y.float(), rtol=0.05, atol=0.05)
-            ms = cuda_ms(lambda: FB.fused_norm_act_conv_cuda(
-                *args, apply_normact=act), 20)
+            ms, _ = device_ms(kernel, 20)
+            eager_ms = cuda_ms(kernel, 20)
             plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
                 *args, apply_normact=act), 3)
-            library_ms = cuda_ms(library, 20)
+            library_ms, rounds = device_ms(library, 20, rounds=3)
         t_bytes, t_ops = fused_bounds_ms(N, H, W, C, Co)
+        bound = max(t_bytes, t_ops)
         per_shape[(H, W, C, Co, act)] = (ms, plain_ms, library_ms, t_bytes,
-                                         t_ops)
+                                         t_ops, eager_ms)
+        info = FB.kernel_info(N, H, W, C, Co)
         print(f'{(N, H, W, C, Co, "normact" if act else "conv")}: kernel '
               f'{ms:.4f} ms ({2 * 9 * C * Co * N * H * W / ms / 1e9:.1f} '
-              f'TFLOP/s), plain {plain_ms:.4f}, library {library_ms:.4f}, '
-              f'bound {max(t_bytes, t_ops):.5f} ms '
+              f'TFLOP/s, {bound / ms:.1%} of bound; eager per call '
+              f'{eager_ms:.4f}), plain {plain_ms:.4f}, library '
+              f'{library_ms:.4f} (rounds {[round(r, 4) for r in rounds]}), '
+              f'bound {bound:.5f} ms '
               f'({"bytes" if t_bytes > t_ops else "operations"}), '
               f'max |y - plain| {err:.4g}')
+        print(f'  tile: BN {info["bn"]}, {info["tile_pixels"]} pixels, '
+              f'{info["units"]} units on {info["grid"]} blocks, resident '
+              f'weights {info["resident_weights"]}; {info["registers"]} '
+              f'registers/thread at entry, shared {info["static_smem"]} '
+              f'static + {info["dynamic_smem"]} dynamic bytes, '
+              f'{info["local_bytes"]} local bytes, {info["blocks_per_sm"]} '
+              f'block(s)/SM')
+        for bn, splits in FUSED_CHOICES.get((H, W, C, Co, act), []):
+            check(args, act, bn=bn, splits=splits)
+            t, _ = device_ms(lambda: kernel(bn=bn, splits=splits), 20)
+            print(f'  choice BN {bn}, splits {splits}: {t:.4f} ms '
+                  f'({bound / t:.1%} of bound)')
+
+    # give the graphs' memory pools back, so the main paths that follow
+    # allocate as they would alone
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # one scan: 5 groups x one forward of the 16-tile batch
     per_scan = [per_shape[sh] for sh in per_forward for _ in GROUPS]
     ms, plain_ms, library_ms = (sum(t[i] for t in per_scan) for i in range(3))
+    eager_ms = sum(t[5] for t in per_scan)
     bound = sum(max(t[3], t[4]) for t in per_scan)
     by_ops = sum(t[4] for t in per_scan) > sum(t[3] for t in per_scan)
     print(f'fused block, one scan ({len(per_scan)} launches): kernel '
-          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, '
+          f'{ms:.4f} ms ({bound / ms:.1%} of bound; eager {eager_ms:.4f} ms), '
+          f'plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, '
           f'bound {bound:.4f} ms; max |y - plain| {worst:.4g}')
     return {'name': 'fused_norm_act_conv', 'route': 'cuda',
             'source': 'totalsegmentator2d_tpu_torch/csrc/fused_block.cu',
@@ -533,15 +613,23 @@ def breakdown(tool, scan, fast):
     engine_s = time.perf_counter() - t0
     batch = torch.randn((16, 2) + FLAGSHIP['patch'], device='cuda')
     with torch.no_grad(), exact_numerics():
-        fwd_ms = cuda_ms(lambda: engine._net(batch), 3)
+        # eager (as the engine runs it: the host's launches included), best
+        # of 3 rounds; and device time alone, by CUDA-graph replay
+        rounds = [cuda_ms(lambda: engine._net(batch), 3) for _ in range(3)]
+        fwd_ms = min(rounds)
+        dev_ms, _ = device_ms(lambda: engine._net(batch), 3)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     flops = len(GROUPS) * 16 * conv_flops(FLAGSHIP, *FLAGSHIP['patch'])
     peak, kind = ((BF16_FLOP_PER_S, 'bf16') if fast
                   else (FP32_FLOP_PER_S, 'fp32'))
     print(f'breakdown: host projection {host_s:.4f} s; engine.predict_array '
           f'{engine_s:.4f} s, of which U-Net forwards {fwd_ms / 1e3:.4f} s '
-          f'({flops / 1e12:.3f} TFLOP, {flops / fwd_ms / 1e9:.1f} TFLOP/s '
+          f'eager (rounds {[round(r / 1e3, 4) for r in rounds]}; '
+          f'{flops / 1e12:.3f} TFLOP, {flops / fwd_ms / 1e9:.1f} TFLOP/s '
           f'{kind}; bound {flops / peak * 1e3:.2f} ms at '
-          f'{peak / 1e12:.0f} TFLOP/s)')
+          f'{peak / 1e12:.0f} TFLOP/s), {dev_ms / 1e3:.4f} s device')
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -63,13 +63,34 @@ def _operands(rng, device, N, H, W, C, Co):
             FB.pack_weight(w.to(device)), b.to(device))
 
 
-# shapes of the flagship U-Net's launches (N cut to 2) and edge shapes:
-# C = Cout = 8, W = 8, H not a multiple of the row tile, channel counts
-# that are not multiples of 8 (the scalar path)
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# shapes of the flagship U-Net's launches (N cut to 2) and edge shapes of
+# the tiling: W < the tile width (8 and 16), H and W that are not multiples
+# of the tile (also of the 256-pixel tile at 32 output channels), N = 1, the
+# small deep shapes that may split K, and channel counts the kernel takes
+# only zero-padded (C = 3, 8, 16, 24; Cout = 5, 40, 100)
 FUSED_SHAPES = [(2, 64, 64, 32, 32, True), (2, 16, 16, 1024, 512, False),
                 (2, 8, 8, 512, 512, True), (2, 9, 8, 8, 8, True),
                 (1, 13, 8, 24, 40, True), (2, 7, 5, 3, 5, True),
-                (2, 7, 5, 3, 5, False)]
+                (2, 7, 5, 3, 5, False), (2, 20, 5, 32, 32, True),
+                (2, 12, 12, 64, 64, True), (2, 37, 45, 64, 128, True),
+                (1, 19, 23, 32, 32, False), (1, 64, 64, 32, 32, True),
+                (2, 9, 11, 16, 100, True), (2, 9, 11, 16, 100, False),
+                (2, 5, 7, 3, 100, True), (2, 8, 8, 128, 64, False),
+                (2, 37, 45, 32, 32, True), (1, 40, 5, 64, 32, False)]
+
+# explicit tile choices at the small deep shapes: BN and split K
+TILE_CHOICES = [(2, 8, 8, 512, 512, 64, 1), (2, 8, 8, 512, 512, 128, 2),
+                (2, 8, 8, 512, 512, 64, 4), (2, 16, 16, 1024, 512, 128, 4),
+                (2, 16, 16, 1024, 512, 64, 2), (2, 16, 16, 256, 32, 32, 3)]
 
 
 class TestFusedBlockKernel:
@@ -84,6 +105,21 @@ class TestFusedBlockKernel:
         ry, rst = FB.fused_norm_act_conv_plain(*args, apply_normact=act)
         torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
         torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
+
+    @pytest.mark.parametrize('N,H,W,C,Co,bn,splits', TILE_CHOICES)
+    def test_tile_choices_match_plain_version(self, cuda, rng, N, H, W, C, Co,
+                                              bn, splits):
+        args = _operands(rng, cuda, N, H, W, C, Co)
+        y, st = FB.fused_norm_act_conv_cuda(*args, bn=bn, splits=splits)
+        y2, st2 = FB.fused_norm_act_conv_cuda(*args, bn=bn, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        ry, rst = FB.fused_norm_act_conv_plain(*args)
+        torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
+        torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
+        info = FB.kernel_info(N, H, W, C, Co, bn=bn, splits=splits)
+        assert info['bn'] == bn and info['splits'] == splits
+        assert info['blocks_per_sm'] >= 1
 
     def test_bitwise_repeatable(self, cuda, rng):
         args = _operands(rng, cuda, 4, 32, 32, 64, 64)
@@ -101,3 +137,5 @@ class TestFusedBlockKernel:
             FB.fused_norm_act_conv(x.transpose(1, 2), sc, sh, wp, b)
         with pytest.raises(ValueError, match='CUDA'):
             FB.fused_norm_act_conv_cuda(x, sc.cpu(), sh, wp, b)
+        with pytest.raises(ValueError, match='aligned'):
+            FB.fused_norm_act_conv(_misaligned(x), sc, sh, wp, b)

@@ -179,6 +179,35 @@ class TestWrapper:
         with pytest.raises(ValueError, match='b must be'):
             FB.fused_norm_act_conv(x, sc, sh, w, b[:2])
 
+    @pytest.mark.parametrize('C,Co,act', [(3, 5, True), (3, 5, False),
+                                          (16, 100, True), (24, 40, False)])
+    def test_channel_padding_is_exact(self, rng, C, Co, act):
+        """The wrapper's zero padding of channel counts the kernel does not
+        take, as plain functions: the padded operands give the unpadded
+        result, sliced back, bit for bit. The operands are small multiples
+        of powers of two, so every product and sum is exact in fp32 and the
+        order of the sums (which the channel count may change) cannot
+        matter."""
+        N, H, W = 2, 5, 7
+        x = torch.from_numpy(rng.integers(-2, 3, (N, H, W, C)) / 2).float()
+        scale = torch.from_numpy(rng.integers(1, 3, (N, C)) / 1).float()
+        shift = torch.from_numpy(rng.integers(-1, 2, (N, C)) / 2).float()
+        w = torch.from_numpy(rng.integers(-1, 2, (3, 3, C, Co)) / 4).float()
+        b = torch.from_numpy(rng.integers(-2, 3, Co) / 4).float()
+        sc, sh = (scale, shift) if act else (None, None)
+        ry, rst = FB.fused_norm_act_conv_plain(x, sc, sh, w, b, 0.25, act)
+        px, psc, psh, pw, pb = FB.pad_channels(x, sc, sh, w, b)
+        assert px.shape[3] % FB.C_MULTIPLE == 0 and px.shape[3] >= C
+        assert pw.shape[2:] == (px.shape[3], -(-Co // FB.COUT_MULTIPLE)
+                                * FB.COUT_MULTIPLE)
+        y, st = FB.fused_norm_act_conv_plain(px, psc, psh, pw, pb, 0.25, act)
+        assert torch.equal(y[..., :Co], ry) and torch.equal(st[..., :Co], rst)
+        assert not y[..., Co:].float().any() and not st[..., Co:].any()
+
+    def test_pad_channels_leaves_kernel_shapes_alone(self, rng):
+        args = [torch.from_numpy(a) for a in _operands(rng, 1, 6, 5, 64, 32)]
+        assert all(p is a for p, a in zip(FB.pad_channels(*args), args))
+
     def test_pack_weight_is_the_kernel_layout(self, rng):
         w = torch.from_numpy(rng.standard_normal((3, 3, 5, 7)).astype(np.float32))
         p = FB.pack_weight(w)

@@ -16,7 +16,10 @@ w (3, 3, C, Cout) HWIO, y (N, H, W, Cout), stats (N, 2, Cout).
 
 The kernel reads w as bf16 (9C, Cout) rows ordered [ky, kx, c]: exactly the
 memory of a contiguous bf16 HWIO tensor, which :func:`pack_weight` makes
-once per model, so a launch casts and reshapes nothing.
+once per model, so a launch casts and reshapes nothing. It loads x and w by
+TMA, which takes C % 32 == 0 and Cout % 8 == 0 (every flagship U-Net stage);
+:func:`pad_channels` zero-pads other counts before the launch, chosen by
+shape, and the wrapper slices y and stats back.
 
 :func:`fused_norm_act_conv` is the entry point: it launches the kernel for a
 CUDA tensor (or raises) and takes the plain version only for a CPU tensor.
@@ -32,6 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.device import exact_numerics
+
+
+# channel multiples the kernel takes (TMA's 16-byte strides, and whole
+# 32-channel chunks of k16 wgmma steps per tap)
+C_MULTIPLE = 32
+COUT_MULTIPLE = 8
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -94,28 +103,76 @@ def fused_norm_act_conv_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
     return out.to(torch.bfloat16), stats
 
 
+def pad_channels(x: torch.Tensor, scale: Optional[torch.Tensor],
+                 shift: Optional[torch.Tensor], w: torch.Tensor,
+                 b: torch.Tensor, c_multiple: int = C_MULTIPLE,
+                 cout_multiple: int = COUT_MULTIPLE):
+    """Zero-pad the input channels to a multiple of ``c_multiple`` and the
+    output channels to a multiple of ``cout_multiple``: x, w and b with
+    zeros, and scale and shift with zeros, so a padded input channel's
+    activation is leaky(0) = 0 and a padded output channel is 0. Returns
+    the five operands (unchanged when no padding is needed); slice y and
+    stats back to the first Cout channels afterwards."""
+    C, Cout = w.shape[2], w.shape[3]
+    pc, po = -C % c_multiple, -Cout % cout_multiple
+    if pc == 0 and po == 0:
+        return x, scale, shift, w, b
+    x = F.pad(x, (0, pc))
+    if scale is not None:
+        scale = F.pad(scale, (0, pc))
+    if shift is not None:
+        shift = F.pad(shift, (0, pc))
+    return x, scale, shift, F.pad(w, (0, po, 0, pc)), F.pad(b, (0, po))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from .build import library
     lib = library('fused_block')
     fn = lib.ts2d_fused_norm_act_conv
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.ts2d_fused_rows_per_tile.argtypes = [ctypes.c_int]
-    lib.ts2d_fused_rows_per_tile.restype = ctypes.c_int
+    lib.ts2d_fused_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.ts2d_fused_scratch_floats.restype = ctypes.c_longlong
+    lib.ts2d_fused_kernel_info.argtypes = ([ctypes.c_int] * 7
+                                           + [ctypes.POINTER(ctypes.c_int)])
+    lib.ts2d_fused_kernel_info.restype = ctypes.c_int
     return lib
+
+
+KERNEL_INFO_KEYS = ('bn', 'tile_pixels', 'mode', 'splits', 'resident_weights',
+                    'units', 'grid', 'registers', 'static_smem',
+                    'dynamic_smem', 'local_bytes', 'blocks_per_sm')
+
+
+def kernel_info(N: int, H: int, W: int, C: int, Cout: int, bn: int = 0,
+                splits: int = 0) -> dict:
+    """The launch configuration the kernel takes for this shape and its
+    instantiation's resources (registers per thread at entry, shared memory,
+    spills, blocks per SM), from cudaFuncGetAttributes and the occupancy
+    calculator. Needs the card."""
+    lib = _library()
+    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = lib.ts2d_fused_kernel_info(N, H, W, C, Cout, bn, splits, info)
+    if err != 0:
+        raise RuntimeError(f'fused block kernel info failed: error {err}')
+    return dict(zip(KERNEL_INFO_KEYS, info))
 
 
 def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
                              shift: Optional[torch.Tensor], w: torch.Tensor,
                              b: torch.Tensor, slope: float = 0.01,
-                             apply_normact: bool = True
+                             apply_normact: bool = True, *, bn: int = 0,
+                             splits: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream. x and w bf16, b (and
     scale, shift when ``apply_normact``) fp32, all contiguous CUDA tensors
-    on one device; raises on anything else. Counts each launch in
-    ``fused_norm_act_conv_cuda.launches``."""
+    on one device; raises on anything else. Channel counts the kernel does
+    not take are zero-padded first (:func:`pad_channels`). ``bn`` (32, 64
+    or 128 output channels per tile) and ``splits`` (input-channel ranges
+    summed by a second pass) override the automatic tile choice; 0 keeps
+    it. Counts each launch in ``fused_norm_act_conv_cuda.launches``."""
     N, C, Cout = _check_shapes(x, scale, shift, w, b, apply_normact)
     named = [('x', x, torch.bfloat16), ('w', w, torch.bfloat16),
              ('b', b, torch.float32)]
@@ -130,27 +187,40 @@ def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
             raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    if N > 65535 or C == 0:
-        raise ValueError(f'unsupported shape N={N}, C={C}')
+    for name, t in (('x', x), ('w', w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned (TMA)')
+    if C == 0:
+        raise ValueError('unsupported shape C=0')
+    if not apply_normact:
+        scale = shift = None
+    x, scale, shift, w, b = pad_channels(x, scale, shift, w, b)
+    Cp, Cop = w.shape[2], w.shape[3]
     _, H, W, _ = x.shape
     lib = _library()
-    rows = lib.ts2d_fused_rows_per_tile(Cout)
-    tiles = -(-(H * W) // rows)
-    y = torch.empty((N, H, W, Cout), dtype=torch.bfloat16, device=x.device)
-    stats = torch.empty((N, 2, Cout), dtype=torch.float32, device=x.device)
-    partial = torch.empty((N, tiles, 2, Cout), dtype=torch.float32,
-                          device=x.device)
     sc = scale.data_ptr() if apply_normact else None
     sh = shift.data_ptr() if apply_normact else None
     with torch.cuda.device(x.device):
+        # the scratch size depends on the device's SM count
+        floats = lib.ts2d_fused_scratch_floats(N, H, W, Cp, Cop, bn, splits)
+        if floats < 0:
+            raise ValueError(f'unsupported fused block launch N={N}, H={H}, '
+                             f'W={W}, C={Cp}, Cout={Cop}, bn={bn}')
+        y = torch.empty((N, H, W, Cop), dtype=torch.bfloat16, device=x.device)
+        stats = torch.empty((N, 2, Cop), dtype=torch.float32, device=x.device)
+        scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ts2d_fused_norm_act_conv(
             x.data_ptr(), sc, sh, w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(), N, H, W, C, Cout,
-            float(slope), int(bool(apply_normact)), stream)
+            scratch.data_ptr(), stats.data_ptr(), N, H, W, Cp, Cop,
+            float(slope), int(bool(apply_normact)), bn, splits, stream)
     if err != 0:
-        raise RuntimeError(f'fused block kernel launch failed: CUDA error {err}')
+        what = (f'tensor-map encode failed: CUresult {err - 1000}'
+                if err >= 1000 else f'CUDA error {err}')
+        raise RuntimeError(f'fused block kernel launch failed: {what}')
     fused_norm_act_conv_cuda.launches += 1
+    if Cop != Cout:
+        y, stats = y[..., :Cout].contiguous(), stats[..., :Cout].contiguous()
     return y, stats
 
 
