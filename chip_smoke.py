@@ -9,11 +9,12 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes, with bitwise-repeat
    checks; kernel, plain and library-yardstick times with CUDA events, and
-   each kernel's bound at those shapes. The fused block's kernel and
-   library times are device times (a CUDA graph of 20 calls, replayed; the
-   library the best of 3 rounds under cuDNN's benchmark mode), beside the
-   kernel's eager per-call time; its tile choices at the small deep shapes
-   and each instantiation's registers, shared memory and blocks per SM.
+   each kernel's bound at those shapes. Times are eager per call (CUDA
+   events over back-to-back calls, the host's launch work included), the
+   fused block's library yardstick the best of 3 rounds under cuDNN's
+   benchmark mode; beside them the fused kernel's device time (a CUDA graph
+   of 20 calls, replayed), its tile and each instantiation's registers,
+   shared memory and blocks per SM.
 3. The main paths at full width: ``TS2D(...).predict(scan)`` with a random
    5-group / 117-label flagship ensemble (6-stage nnU-Net, features
    32..512, patch 256^2) on a clinical-spacing torso phantom CT
@@ -262,11 +263,11 @@ def fused_bounds_ms(N, H, W, C, Co):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
 
 
-def device_ms(fn, iters, rounds=1):
+def device_ms(fn, iters):
     """Device milliseconds of one fn() call, without the host's launch
     overhead: fn() once eagerly (warm-up, and any algorithm search), then a
-    CUDA graph of `iters` calls replayed `rounds` times, each round timed by
-    CUDA events. Returns (best round, every round)."""
+    CUDA graph of `iters` calls, replayed once untimed and once timed by
+    CUDA events."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -275,17 +276,14 @@ def device_ms(fn, iters, rounds=1):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
     del graph
-    return min(times), times
+    return start.elapsed_time(end) / iters
 
 
 # edge shapes of the kernel's tiling and padding: W below the tile width,
@@ -298,13 +296,6 @@ FUSED_EDGES = [(2, 9, 8, 8, 8, True), (2, 9, 8, 8, 8, False),
                (1, 19, 23, 32, 32, False), (2, 9, 11, 16, 100, True),
                (2, 5, 7, 3, 100, True), (2, 37, 45, 32, 32, True),
                (1, 40, 5, 64, 32, False)]
-# the small deep shapes, at each tile choice: BN, and split K (a second pass
-# adds the input-channel ranges); the automatic choice is the first
-FUSED_CHOICES = {(8, 8, 512, 512, True): [(64, 1), (128, 1), (128, 2),
-                                          (64, 2), (128, 4)],
-                 (16, 16, 512, 512, True): [(128, 1), (64, 1), (128, 2)],
-                 (16, 16, 1024, 512, False): [(128, 1), (64, 1), (128, 2),
-                                              (128, 4)]}
 
 
 def check_fused_block():
@@ -320,14 +311,14 @@ def check_fused_block():
         b = (torch.randn((Co,), generator=gen) * 0.1).cuda()
         return x, sc, sh, FB.pack_weight(w.cuda()), b
 
-    def check(args, act, **tile):
+    def check(args, act):
         """The kernel against its plain version, and two runs bitwise."""
-        y, st = FB.fused_norm_act_conv_cuda(*args, apply_normact=act, **tile)
-        y2, st2 = FB.fused_norm_act_conv_cuda(*args, apply_normact=act, **tile)
+        y, st = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
+        y2, st2 = FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
         torch.cuda.synchronize()
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
             raise SystemExit(f'fused block not bitwise repeatable at '
-                             f'{tuple(args[0].shape)}, {tile}')
+                             f'{tuple(args[0].shape)}')
         ry, rst = FB.fused_norm_act_conv_plain(*args, apply_normact=act)
         torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
         torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
@@ -361,31 +352,32 @@ def check_fused_block():
             return out, torch.stack([o32.sum(dim=(2, 3)),
                                      o32.square().sum(dim=(2, 3))], dim=1)
 
-        def kernel(**tile):
-            return FB.fused_norm_act_conv_cuda(*args, apply_normact=act,
-                                               **tile)
+        def kernel():
+            return FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
 
         with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                         deterministic=False, allow_tf32=False):
             ly, _ = library()
             torch.testing.assert_close(ly.permute(0, 2, 3, 1).float(),
                                        y.float(), rtol=0.05, atol=0.05)
-            ms, _ = device_ms(kernel, 20)
-            eager_ms = cuda_ms(kernel, 20)
+            ms = cuda_ms(kernel, 20)
+            dev_ms = device_ms(kernel, 20)
             plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
                 *args, apply_normact=act), 3)
-            library_ms, rounds = device_ms(library, 20, rounds=3)
+            rounds = [cuda_ms(library, 20) for _ in range(3)]
+            library_ms = min(rounds)
         t_bytes, t_ops = fused_bounds_ms(N, H, W, C, Co)
         bound = max(t_bytes, t_ops)
         per_shape[(H, W, C, Co, act)] = (ms, plain_ms, library_ms, t_bytes,
-                                         t_ops, eager_ms)
+                                         t_ops, dev_ms)
         info = FB.kernel_info(N, H, W, C, Co)
+        flop = 2 * 9 * C * Co * N * H * W
         print(f'{(N, H, W, C, Co, "normact" if act else "conv")}: kernel '
-              f'{ms:.4f} ms ({2 * 9 * C * Co * N * H * W / ms / 1e9:.1f} '
-              f'TFLOP/s, {bound / ms:.1%} of bound; eager per call '
-              f'{eager_ms:.4f}), plain {plain_ms:.4f}, library '
-              f'{library_ms:.4f} (rounds {[round(r, 4) for r in rounds]}), '
-              f'bound {bound:.5f} ms '
+              f'{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} '
+              f'of bound; device {dev_ms:.4f} ms, {flop / dev_ms / 1e9:.1f} '
+              f'TFLOP/s, {bound / dev_ms:.1%}), plain {plain_ms:.4f}, '
+              f'library {library_ms:.4f} (rounds '
+              f'{[round(r, 4) for r in rounds]}), bound {bound:.5f} ms '
               f'({"bytes" if t_bytes > t_ops else "operations"}), '
               f'max |y - plain| {err:.4g}')
         print(f'  tile: BN {info["bn"]}, {info["tile_pixels"]} pixels, '
@@ -395,11 +387,6 @@ def check_fused_block():
               f'static + {info["dynamic_smem"]} dynamic bytes, '
               f'{info["local_bytes"]} local bytes, {info["blocks_per_sm"]} '
               f'block(s)/SM')
-        for bn, splits in FUSED_CHOICES.get((H, W, C, Co, act), []):
-            check(args, act, bn=bn, splits=splits)
-            t, _ = device_ms(lambda: kernel(bn=bn, splits=splits), 20)
-            print(f'  choice BN {bn}, splits {splits}: {t:.4f} ms '
-                  f'({bound / t:.1%} of bound)')
 
     # give the graphs' memory pools back, so the main paths that follow
     # allocate as they would alone
@@ -410,17 +397,19 @@ def check_fused_block():
     # one scan: 5 groups x one forward of the 16-tile batch
     per_scan = [per_shape[sh] for sh in per_forward for _ in GROUPS]
     ms, plain_ms, library_ms = (sum(t[i] for t in per_scan) for i in range(3))
-    eager_ms = sum(t[5] for t in per_scan)
+    dev_ms = sum(t[5] for t in per_scan)
     bound = sum(max(t[3], t[4]) for t in per_scan)
     by_ops = sum(t[4] for t in per_scan) > sum(t[3] for t in per_scan)
     print(f'fused block, one scan ({len(per_scan)} launches): kernel '
-          f'{ms:.4f} ms ({bound / ms:.1%} of bound; eager {eager_ms:.4f} ms), '
-          f'plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, '
-          f'bound {bound:.4f} ms; max |y - plain| {worst:.4g}')
+          f'{ms:.4f} ms ({bound / ms:.1%} of bound; device {dev_ms:.4f} ms, '
+          f'{bound / dev_ms:.1%}), plain {plain_ms:.4f} ms, library '
+          f'{library_ms:.4f} ms, bound {bound:.4f} ms; max |y - plain| '
+          f'{worst:.4g}')
     return {'name': 'fused_norm_act_conv', 'route': 'cuda',
             'source': 'totalsegmentator2d_tpu_torch/csrc/fused_block.cu',
             'replaces': 'totalsegmentator2d_tpu/ops/pallas/fused_block.py:56',
-            'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
+            'max_abs_err': worst, 'ms': ms, 'device_ms': dev_ms,
+            'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': 'operations' if by_ops else 'bytes',
             'library_ms': library_ms}, len(per_scan)
 
@@ -617,7 +606,7 @@ def breakdown(tool, scan, fast):
         # of 3 rounds; and device time alone, by CUDA-graph replay
         rounds = [cuda_ms(lambda: engine._net(batch), 3) for _ in range(3)]
         fwd_ms = min(rounds)
-        dev_ms, _ = device_ms(lambda: engine._net(batch), 3)
+        dev_ms = device_ms(lambda: engine._net(batch), 3)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -75,10 +75,12 @@ def _misaligned(t):
 # shapes of the flagship U-Net's launches (N cut to 2) and edge shapes of
 # the tiling: W < the tile width (8 and 16), H and W that are not multiples
 # of the tile (also of the 256-pixel tile at 32 output channels), N = 1, the
-# small deep shapes that may split K, and channel counts the kernel takes
-# only zero-padded (C = 3, 8, 16, 24; Cout = 5, 40, 100)
+# small deep shapes (BN 64 on 64-pixel tiles at 8x8, BN 128 at 16x16), and
+# channel counts the kernel takes only zero-padded (C = 3, 8, 16, 24;
+# Cout = 5, 40, 100)
 FUSED_SHAPES = [(2, 64, 64, 32, 32, True), (2, 16, 16, 1024, 512, False),
-                (2, 8, 8, 512, 512, True), (2, 9, 8, 8, 8, True),
+                (2, 8, 8, 512, 512, True), (2, 16, 16, 512, 512, True),
+                (2, 16, 16, 256, 32, True), (2, 9, 8, 8, 8, True),
                 (1, 13, 8, 24, 40, True), (2, 7, 5, 3, 5, True),
                 (2, 7, 5, 3, 5, False), (2, 20, 5, 32, 32, True),
                 (2, 12, 12, 64, 64, True), (2, 37, 45, 64, 128, True),
@@ -87,10 +89,10 @@ FUSED_SHAPES = [(2, 64, 64, 32, 32, True), (2, 16, 16, 1024, 512, False),
                 (2, 5, 7, 3, 100, True), (2, 8, 8, 128, 64, False),
                 (2, 37, 45, 32, 32, True), (1, 40, 5, 64, 32, False)]
 
-# explicit tile choices at the small deep shapes: BN and split K
-TILE_CHOICES = [(2, 8, 8, 512, 512, 64, 1), (2, 8, 8, 512, 512, 128, 2),
-                (2, 8, 8, 512, 512, 64, 4), (2, 16, 16, 1024, 512, 128, 4),
-                (2, 16, 16, 1024, 512, 64, 2), (2, 16, 16, 256, 32, 32, 3)]
+# the tile the kernel takes by shape (N, H, W, C, Cout -> BN, tile pixels):
+# 256 pixels at 32 resident output channels, 64 pixels and BN 64 at 8x8
+TILE_CHOICES = [(16, 256, 256, 32, 32, 32, 256), (16, 128, 128, 64, 64, 64, 128),
+                (16, 16, 16, 1024, 512, 128, 128), (16, 8, 8, 512, 512, 64, 64)]
 
 
 class TestFusedBlockKernel:
@@ -106,19 +108,11 @@ class TestFusedBlockKernel:
         torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
         torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
 
-    @pytest.mark.parametrize('N,H,W,C,Co,bn,splits', TILE_CHOICES)
-    def test_tile_choices_match_plain_version(self, cuda, rng, N, H, W, C, Co,
-                                              bn, splits):
-        args = _operands(rng, cuda, N, H, W, C, Co)
-        y, st = FB.fused_norm_act_conv_cuda(*args, bn=bn, splits=splits)
-        y2, st2 = FB.fused_norm_act_conv_cuda(*args, bn=bn, splits=splits)
-        torch.cuda.synchronize()
-        assert torch.equal(y, y2) and torch.equal(st, st2)
-        ry, rst = FB.fused_norm_act_conv_plain(*args)
-        torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
-        torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
-        info = FB.kernel_info(N, H, W, C, Co, bn=bn, splits=splits)
-        assert info['bn'] == bn and info['splits'] == splits
+    @pytest.mark.parametrize('N,H,W,C,Co,bn,tile', TILE_CHOICES)
+    def test_tile_choice(self, cuda, N, H, W, C, Co, bn, tile):
+        info = FB.kernel_info(N, H, W, C, Co)
+        assert (info['bn'], info['tile_pixels']) == (bn, tile)
+        assert 1 <= info['grid'] <= info['units']
         assert info['blocks_per_sm'] >= 1
 
     def test_bitwise_repeatable(self, cuda, rng):

@@ -21,10 +21,10 @@
 //
 // * Work unit = one output tile: a box of one image (128 pixels: 8 rows x 16
 //   columns, or 16 x 8 when W <= 8; 8 x 8 = 64 pixels for images of at most
-//   8 x 8) times BN output channels (32/64/128; 64 at <= 8 x 8), optionally
-//   one of `splits` ranges of the input channels. Blocks walk the units in a
-//   fixed order. A tile stays inside one image, so its statistics belong to
-//   one n.
+//   8 x 8; 256 pixels at 32 output channels where the weights stay resident)
+//   times BN output channels (32/64/128, from Cout; 64 at <= 8 x 8). Blocks
+//   walk the units in a fixed order. A tile stays inside one image, so its
+//   statistics belong to one n.
 // * Producer warp (warp 8; setmaxnreg.dec): TMA loads into two shared-memory
 //   rings with full/empty mbarriers.
 //   - The halo tile: a (TH+2) x (TW+2) box of CW input channels (CW = 64,
@@ -36,8 +36,8 @@
 //   - Weight slices: for each (channel chunk, tap), the CW x BN slice of the
 //     (9C, Cout) bf16 matrix (pack_weight's HWIO memory) through a 2-D
 //     tensor map, 64- or 128-byte swizzled, in atoms of <= 64 columns. When
-//     a unit's whole weight slice fits in shared memory (one Cout tile, no
-//     split), it is loaded once per block and stays resident.
+//     a unit's whole weight slice fits in shared memory (one Cout tile), it
+//     is loaded once per block and stays resident.
 // * Normact warps (warps 9-11): normact once per element of each halo chunk
 //   in shared memory, in place, after it arrives (out-of-image positions are
 //   left at TMA's 0), with __fmul_rn/__fadd_rn so the bf16 A operand is
@@ -57,11 +57,9 @@
 //   a padded shared-memory stage and stored in 16-byte coalesced rows. The
 //   per-column [sum, sumsq] of the in-image rows is added up in registers,
 //   over a block's consecutive units of one image where the accumulators
-//   are narrow (one Cout tile, no split), else per unit; then summed over
-//   lanes by shuffles and over warps in a fixed order in shared memory into
-//   a partial row. With splits > 1 the fp32 partial accumulators go to a
-//   workspace and a second kernel adds the splits in order, adds the bias,
-//   writes y and the per-chunk statistics.
+//   are narrow (one Cout tile), else per unit; then summed over lanes by
+//   shuffles and over warps in a fixed order in shared memory into a
+//   partial row.
 // * A last small kernel sums the partial rows in order. No atomics
 //   anywhere: the same input gives bitwise the same y and stats.
 //
@@ -83,46 +81,20 @@ constexpr int THREADS = CONSUMERS + 128;   // + the producer warpgroup
 constexpr int MAX_SMEM = 232448;           // per block on an H100
 constexpr int MAX_STAGES = 36;             // resident weights: 4 chunks x 9 taps
 constexpr int YPAD = 8;                    // bf16 of padding per y-stage row
-constexpr int FIN_ROWS = 8;                // pixels per block of the split pass
 constexpr int MAX_HALO = 4;                // halo ring stages
 constexpr int TRANSFORM = 96;              // normact threads: warps 1-3 of the producer group
-
-// Built with -DTS2D_FUSED_PROFILE, the kernel adds up clock64() cycles by
-// phase for one thread of each role (consumer warpgroups 0 and 1, producer,
-// normact) into prof[(block * 4 + role) * 8 + slot] (ts2d_fused_profile sets
-// the buffer); without it the macros are empty. Two more switches of such a
-// build take a phase out to see what the rest costs (the results are then
-// wrong): -DTS2D_FUSED_SKIP_MMA (consumers only wait for and release the
-// halo) and -DTS2D_FUSED_SKIP_NORMACT (the normact warps pass chunks on
-// untouched). tools/fused_block_profile.py drives these builds.
-#ifdef TS2D_FUSED_PROFILE
-#define PROF_DECL long long prof_[8] = {0, 0, 0, 0, 0, 0, 0, 0}; const long long prof_t0_ = clock64();
-#define PROF_MARK(v) const long long v = clock64();
-#define PROF_ADD(k, v) prof_[k] += clock64() - v;
-#define PROF_STORE(role, on)                                                       \
-    if (p.prof && (on)) {                                                          \
-        prof_[7] = clock64() - prof_t0_;                                           \
-        for (int i_ = 0; i_ < 8; ++i_) p.prof[(blockIdx.x * 4 + (role)) * 8 + i_] = prof_[i_]; \
-    }
-#else
-#define PROF_DECL
-#define PROF_MARK(v)
-#define PROF_ADD(k, v)
-#define PROF_STORE(role, on)
-#endif
 
 struct Params {
     const float* scale;
     const float* shift;
     const float* bias;
     bf16* y;
-    float* out;  // partial statistics (splits == 1) or the split workspace
+    float* out;  // partial statistics
     int N, H, W, C, Cout;
-    int cw, tw, twl, th, tiles_w, tiles, ct, splits, nchunks, units;
+    int cw, tw, twl, th, tiles_w, tiles, ct, nchunks, units;
     int nh, nb, resident, act, accum;
     float slope;
     int halo_bytes, halo_stage, b_stage, off_b, off_y, off_red, off_bar;
-    long long* prof;
 };
 
 // -- PTX helpers ----------------------------------------------------------
@@ -324,21 +296,17 @@ __device__ __forceinline__ float normact(float v, float s, float t, float slope)
 }
 
 struct Unit {
-    int n, t, h0, w0, n0, sp, cb, ce;
+    int n, t, h0, w0, n0;
 };
 
 __device__ __forceinline__ Unit decode(const Params& p, int BN, int u) {
     Unit r;
-    r.sp = u % p.splits;
-    int q = u / p.splits;
-    r.n0 = (q % p.ct) * BN;
-    q /= p.ct;
+    r.n0 = (u % p.ct) * BN;
+    const int q = u / p.ct;
     r.t = q % p.tiles;
     r.n = q / p.tiles;
     r.h0 = (r.t / p.tiles_w) * p.th;
     r.w0 = (r.t % p.tiles_w) * p.tw;
-    r.cb = r.sp * p.nchunks / p.splits;
-    r.ce = (r.sp + 1) * p.nchunks / p.splits;
     return r;
 }
 
@@ -409,10 +377,9 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
             const int th2 = p.th + 2;
             int hs = 0, hph = 0, cn = -1, cc0 = -1;
             float s8[8], t8[8];
-            PROF_DECL
             for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
                 const Unit un = decode(p, BN, u);
-                for (int cc = un.cb; cc < un.ce; ++cc) {
+                for (int cc = 0; cc < p.nchunks; ++cc) {
                     if (un.n != cn || cc != cc0) {
                         const size_t c0 = (size_t)un.n * p.C + cc * CW + g8 * 8;
 #pragma unroll
@@ -423,16 +390,7 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
                         cn = un.n;
                         cc0 = cc;
                     }
-                    PROF_MARK(tw0)
                     mbar_wait(HF(hs), hph);
-                    PROF_ADD(0, tw0)
-                    PROF_MARK(tw1)
-#ifdef TS2D_FUSED_SKIP_NORMACT
-                    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                    mbar_arrive(HR(hs));
-                    if (++hs == p.nh) { hs = 0; hph ^= 1; }
-                    continue;
-#endif
                     // batches of NA 16-byte groups: all loads, then the
                     // math, then all stores, so the loads' latencies overlap
                     // (the shared accesses are ordered asm statements)
@@ -474,47 +432,37 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
                     // the writes come before the slot's next TMA load (async proxy)
                     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
                     mbar_arrive(HR(hs));
-                    PROF_ADD(1, tw1)
                     if (++hs == p.nh) { hs = 0; hph ^= 1; }
                 }
             }
-            PROF_STORE(3, ttid == 0)
             return;
         }
         // ---- producer: one thread issues every TMA load ----
         if (tid != CONSUMERS) return;
         // the halo cursor runs up to nh chunks ahead of the weight cursor
-        int hu = blockIdx.x, hs = 0, hph = 0, lead = 0;
+        int hu = blockIdx.x, hs = 0, hph = 0, lead = 0, hcc = 0;
         Unit hun = decode(p, BN, hu < p.units ? hu : 0);
-        int hcc = hun.cb;
         int bs = 0, bph = 0;
         bool first = true;
-        PROF_DECL
         for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
             const Unit un = decode(p, BN, u);
-            for (int cc = un.cb; cc < un.ce; ++cc) {
+            for (int cc = 0; cc < p.nchunks; ++cc) {
                 for (; lead < p.nh && hu < p.units; ++lead) {
-                    PROF_MARK(pw0)
                     mbar_wait(HE(hs), hph ^ 1);
-                    PROF_ADD(0, pw0)
                     mbar_expect_tx(HF(hs), p.halo_bytes);
                     tma_load_4d(sbase + hs * p.halo_stage, &xmap, HF(hs), hcc * CW,
                                 hun.w0 - 1, hun.h0 - 1, hun.n);
                     if (++hs == p.nh) { hs = 0; hph ^= 1; }
-                    if (++hcc == hun.ce) {
+                    if (++hcc == p.nchunks) {
+                        hcc = 0;
                         hu += gridDim.x;
-                        if (hu < p.units) {
-                            hun = decode(p, BN, hu);
-                            hcc = hun.cb;
-                        }
+                        if (hu < p.units) hun = decode(p, BN, hu);
                     }
                 }
                 --lead;  // chunk cc's halo is on its way
                 if (p.resident && !first) continue;
                 for (int tap = 0; tap < 9; ++tap) {
-                    PROF_MARK(pw1)
                     mbar_wait(BE(bs), bph ^ 1);
-                    PROF_ADD(1, pw1)
                     mbar_expect_tx(BF(bs), p.b_stage);
                     for (int a = 0; a < ATOMS; ++a)
                         tma_load_2d(bring + bs * p.b_stage + a * CW * ROWB, &wmap,
@@ -524,7 +472,6 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
             }
             first = false;
         }
-        PROF_STORE(2, true)
         return;
     }
 
@@ -570,7 +517,7 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
     // statistics: each thread adds its columns' in-image values in registers,
     // and a flush sums them over lanes and warps in a fixed order into a
     // partial row [sum, sumsq] of Cout. With p.accum (narrow accumulators,
-    // one Cout tile, no split) the sums run over the block's consecutive
+    // one Cout tile) the sums run over the block's consecutive
     // units of one image into the block's row of that image, (grid, N, 2,
     // Cout), whose rows of images the block never meets are zeroed here;
     // else every unit writes its tile's row, (N, tiles, 2, Cout)
@@ -626,7 +573,6 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
     uint32_t afrag[TPS][KS][MB][4];
     int hpos = 0, bs = 0, bph = 0;
     bool first = true;
-    PROF_DECL
 
     for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
         const Unit un = decode(p, BN, u);
@@ -641,17 +587,10 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
         for (int b = 0; b < MB; ++b)
 #pragma unroll
             for (int i = 0; i < WG_N / 2; ++i) acc[b][i] = 0.f;
-        PROF_MARK(cm0)
-        for (int cc = un.cb; cc < un.ce; ++cc, ++hpos) {
+        for (int cc = 0; cc < p.nchunks; ++cc, ++hpos) {
             const int hs = hpos % p.nh, hph = (hpos / p.nh) & 1;
             const uint32_t hbase = sbase + hs * p.halo_stage;
-            PROF_MARK(cw0)
             mbar_wait(p.act ? HR(hs) : HF(hs), hph);
-            PROF_ADD(0, cw0)
-#ifdef TS2D_FUSED_SKIP_MMA
-            mbar_arrive(HE(hs));
-            continue;
-#endif
 #pragma unroll
             for (int t0 = 0; t0 < 9; t0 += TPS) {
 #pragma unroll
@@ -666,7 +605,6 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
                                                   : a_off(t0 + t, ks)));
                 // the stage's weight slices
                 const int slot0 = p.resident ? cc * 9 + t0 : bs;
-                PROF_MARK(cw1)
                 if (!p.resident || first) {
                     int sl = slot0, ph = p.resident ? 0 : bph;
                     for (int t = 0; t < TPS; ++t) {
@@ -674,7 +612,6 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
                         if (++sl == p.nb) { sl = 0; ph ^= 1; }
                     }
                 }
-                PROF_ADD(1, cw1)
 #pragma unroll
                 for (int b = 0; b < MB; ++b) fence_acc(acc[b]);
                 wgmma_fence();
@@ -705,33 +642,8 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
             }
         }
         first = false;
-        PROF_ADD(2, cm0)
-        PROF_MARK(ce0)
 
         // ---- epilogue ----
-        if (p.splits > 1) {
-            // raw fp32 partial accumulators of this channel range
-            float* ws = p.out + ((size_t)un.sp * p.N + un.n) * p.H * p.W * p.Cout;
-#pragma unroll
-            for (int b = 0; b < MB; ++b)
-#pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int m = rowbase + 64 * b + 16 * warp + g0 + 8 * half;
-                    const int hh = un.h0 + (m >> p.twl), ww = un.w0 + (m & (p.tw - 1));
-                    if (hh >= p.H || ww >= p.W) continue;
-                    float* r = ws + ((size_t)hh * p.W + ww) * p.Cout;
-#pragma unroll
-                    for (int jj = 0; jj < WG_N / 8; ++jj) {
-                        const int gc = un.n0 + colbase + 8 * jj + 2 * t4;
-                        if (gc < p.Cout)
-                            *reinterpret_cast<float2*>(r + gc) = make_float2(
-                                acc[b][4 * jj + 2 * half], acc[b][4 * jj + 2 * half + 1]);
-                    }
-                }
-            PROF_ADD(3, ce0)
-            continue;
-        }
-
         named_bar_sync(wbar, 128);  // this warpgroup's stage is free again
         if (!accum) {
 #pragma unroll
@@ -790,39 +702,8 @@ fused_conv_sm90(const __grid_constant__ CUtensorMap xmap,
                     *reinterpret_cast<const uint4*>(st + lr * (WG_N + YPAD) + ch * 8);
         }
         if (!accum) flush();
-        PROF_ADD(3, ce0)
-#ifdef TS2D_FUSED_PROFILE
-        ++prof_[4];
-#endif
     }
     if (accum && cur_n >= 0) flush();
-    PROF_STORE(wg, wtid == 0)
-}
-
-// splits > 1: y = bf16(sum of the splits in order + b), and per (n, chunk
-// of FIN_ROWS pixels, cout) the [sum, sumsq] partial
-__global__ void splitk_finish_kernel(const float* __restrict__ ws,
-                                     const float* __restrict__ bias,
-                                     bf16* __restrict__ y, float* __restrict__ partial,
-                                     int N, int HW, int Cout, int splits) {
-    const int chunk = blockIdx.x, n = blockIdx.y;
-    const int p0 = chunk * FIN_ROWS, p1 = min(HW, p0 + FIN_ROWS);
-    for (int c = threadIdx.x; c < Cout; c += blockDim.x) {
-        const float bv = bias[c];
-        float s = 0.f, q = 0.f;
-        for (int px = p0; px < p1; ++px) {
-            float v = 0.f;
-            for (int sp = 0; sp < splits; ++sp)
-                v = __fadd_rn(v, ws[(((size_t)sp * N + n) * HW + px) * Cout + c]);
-            v = __fadd_rn(v, bv);
-            y[((size_t)n * HW + px) * Cout + c] = __float2bfloat16_rn(v);
-            s = __fadd_rn(s, v);
-            q = __fadd_rn(q, __fmul_rn(v, v));
-        }
-        const size_t base = ((size_t)n * gridDim.x + chunk) * 2 * Cout + c;
-        partial[base] = s;
-        partial[base + Cout] = q;
-    }
 }
 
 // stats[n][s][c] = sum over t, in order, of the partial at t * t_stride +
@@ -871,12 +752,11 @@ struct Plan {
 
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// The tile configuration of one launch (bn_req / splits_req 0 = automatic):
-// the 128-pixel tile, or the 64-pixel tile for images of at most 8x8; the
-// weights resident where they fit. Returns 0, or cudaErrorInvalidValue for a
-// shape the kernel does not take.
-int make_plan(int N, int H, int W, int C, int Cout, int bn_req, int splits_req,
-              Plan* pl) {
+// The tile configuration of one launch, from its shape: the 128-pixel tile,
+// or the 64-pixel tile for images of at most 8x8; the weights resident where
+// they fit. Returns 0, or cudaErrorInvalidValue for a shape the kernel does
+// not take.
+int make_plan(int N, int H, int W, int C, int Cout, Plan* pl) {
     if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 || C % 32 || Cout % 8 ||
         (long long)H * W * (C > Cout ? C : Cout) >= (1LL << 31))
         return cudaErrorInvalidValue;
@@ -884,12 +764,9 @@ int make_plan(int N, int H, int W, int C, int Cout, int bn_req, int splits_req,
     p = Params{};
     p.N = N; p.H = H; p.W = W; p.C = C; p.Cout = Cout;
     // BN 64 at images of at most 8 x 8: twice the blocks of BN 128 on the
-    // card (measured faster at 8 x 8 x 512 -> 512, PERF.md)
-    const int bn = bn_req                 ? bn_req
-                   : Cout <= 32           ? 32
-                   : Cout <= 64 || (H <= 8 && W <= 8) ? 64
-                                          : 128;
-    if (bn != 32 && bn != 64 && bn != 128) return cudaErrorInvalidValue;
+    // card (measured faster at 8 x 8 x 512 -> 512, and than splitting K
+    // there by a second pass, PERF.md)
+    const int bn = Cout <= 32 ? 32 : Cout <= 64 || (H <= 8 && W <= 8) ? 64 : 128;
     const int mode = H <= 8 && W <= 8 && bn >= 64 ? 1 : 0;
     const int wg_n = mode == 1 ? bn / 2 : bn;
     pl->bn = bn;
@@ -899,17 +776,16 @@ int make_plan(int N, int H, int W, int C, int Cout, int bn_req, int splits_req,
     p.twl = p.tw == 8 ? 3 : 4;
     p.cw = C % 64 == 0 ? 64 : 32;
     p.nchunks = C / p.cw;
-    p.splits = splits_req < 1 ? 1 : splits_req > p.nchunks ? p.nchunks : splits_req;
     p.b_stage = p.cw * bn * 2;
     const int red_bytes = 2 * 2 * 8 * bn * 4;
     const int bar_bytes = 8 * (3 * MAX_HALO + 2 * MAX_STAGES);
     // 256-pixel tiles (two m64 row blocks per warpgroup) where the weights
-    // stay resident beside them (BN 32, one Cout tile, no split; wider
-    // accumulators would spill), else 128-pixel tiles, or 64 at images of at most 8 x 8. The
-    // weights stay resident where they fit beside the deepest halo ring
+    // stay resident beside them (BN 32, one Cout tile; wider accumulators
+    // would spill), else 128-pixel tiles, or 64 at images of at most 8 x 8.
+    // The weights stay resident where they fit beside the deepest halo ring
     // that fits; else a weight ring of up to 12 slices beside a 2-stage
     // halo ring.
-    const bool wide = mode == 0 && wg_n <= 32 && p.ct == 1 && p.splits == 1;
+    const bool wide = mode == 0 && wg_n <= 32 && p.ct == 1;
     for (int mb = wide ? 2 : 1;; --mb) {
         pl->mb = mb;
         pl->tile = mode == 0 ? 128 * mb : 64;
@@ -925,7 +801,7 @@ int make_plan(int N, int H, int W, int C, int Cout, int bn_req, int splits_req,
             return fit < MAX_STAGES ? fit : MAX_STAGES;
         };
         p.resident = 0;
-        if (p.splits == 1 && p.ct == 1)
+        if (p.ct == 1)
             for (int nh = MAX_HALO; nh >= 2 && !p.resident; --nh)
                 if (9 * p.nchunks <= stages(nh)) {
                     p.resident = 1;
@@ -946,20 +822,17 @@ int make_plan(int N, int H, int W, int C, int Cout, int bn_req, int splits_req,
         pl->smem = p.off_bar + bar_bytes + 1024;  // + the alignment slack
         break;
     }
-    pl->kid = mode == 1 ? (bn == 64 ? 3 : 4) : pl->mb == 2 ? 5 : (bn == 32 ? 0 : bn == 64 ? 1 : 2);
-    const long long units = (long long)N * p.tiles * p.ct * p.splits;
+    pl->kid = mode == 1 ? 3 : pl->mb == 2 ? 4 : (bn == 32 ? 0 : bn == 64 ? 1 : 2);
+    const long long units = (long long)N * p.tiles * p.ct;
     if (units > 0x7fffffff) return cudaErrorInvalidValue;
     p.units = (int)units;
     pl->grid = p.units < sm_count() ? p.units : sm_count();
     // statistics partials: one row per block and image when the units of a
-    // block accumulate (narrow accumulators, one Cout tile, no split), else
-    // one per tile, or per chunk of the split pass
-    p.accum = wg_n <= 64 && p.ct == 1 && p.splits == 1;
-    pl->stat_tiles = p.splits > 1 ? (H * W + FIN_ROWS - 1) / FIN_ROWS
-                     : p.accum    ? pl->grid
-                                  : p.tiles;
-    pl->scratch = (long long)N * pl->stat_tiles * 2 * Cout +
-                  (p.splits > 1 ? (long long)p.splits * N * H * W * Cout : 0);
+    // block accumulate (narrow accumulators, one Cout tile), else one per
+    // tile
+    p.accum = wg_n <= 64 && p.ct == 1;
+    pl->stat_tiles = p.accum ? pl->grid : p.tiles;
+    pl->scratch = (long long)N * pl->stat_tiles * 2 * Cout;
     return 0;
 }
 
@@ -1021,7 +894,7 @@ int encode_maps(const Plan& pl, const void* x, const void* w, CUtensorMap* xm,
 
 typedef void (*KernelFn)(CUtensorMap, CUtensorMap, Params);
 
-long long* g_prof = nullptr;
+constexpr int KERNELS = 5;  // instantiations per chunk width
 
 template <int CW>
 KernelFn kernel_cw(int kid) {
@@ -1030,7 +903,6 @@ KernelFn kernel_cw(int kid) {
         case 1: return fused_conv_sm90<64, 0, CW, 1>;
         case 2: return fused_conv_sm90<128, 0, CW, 1>;
         case 3: return fused_conv_sm90<64, 1, CW, 1>;
-        case 4: return fused_conv_sm90<128, 1, CW, 1>;
         default: return fused_conv_sm90<32, 0, CW, 2>;
     }
 }
@@ -1042,7 +914,7 @@ KernelFn kernel_for(const Plan& pl) {
 // lets the plan's instantiation use all of a block's shared memory, once
 // per instantiation and device
 cudaError_t allow_smem(const Plan& pl) {
-    static bool done[MAX_DEVICES][2][6] = {};
+    static bool done[MAX_DEVICES][2][KERNELS] = {};
     bool& d = done[current_device()][pl.p.cw == 64][pl.kid];
     if (d) return cudaSuccess;
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1053,25 +925,22 @@ cudaError_t allow_smem(const Plan& pl) {
 
 }  // namespace
 
-// fp32 elements of the scratch buffer that one launch needs (statistics
-// partials, and the split workspace when splits > 1); -1 for a shape the
-// kernel does not take. bn / splits: 0 = the automatic choice.
-extern "C" long long ts2d_fused_scratch_floats(int N, int H, int W, int C, int Cout,
-                                               int bn, int splits) {
+// fp32 elements of the scratch buffer (statistics partials) that one launch
+// needs; -1 for a shape the kernel does not take.
+extern "C" long long ts2d_fused_scratch_floats(int N, int H, int W, int C, int Cout) {
     Plan pl;
-    return make_plan(N, H, W, C, Cout, bn, splits, &pl) ? -1 : pl.scratch;
+    return make_plan(N, H, W, C, Cout, &pl) ? -1 : pl.scratch;
 }
 
 // The launch's configuration and the kernel instantiation's resources:
 // info = {BN, tile pixels, mode (0: a 128- or 256-pixel tile split by rows,
-// 1: a 64-pixel tile with
-// BN split between the warpgroups), splits, resident weights, work units, grid,
-// registers per thread at entry, static shared bytes, dynamic shared bytes,
-// local (spill) bytes per thread, blocks per SM}. Returns a CUDA error code.
-extern "C" int ts2d_fused_kernel_info(int N, int H, int W, int C, int Cout, int bn,
-                                      int splits, int* info) {
+// 1: a 64-pixel tile with BN split between the warpgroups), resident
+// weights, work units, grid, registers per thread at entry, static shared
+// bytes, dynamic shared bytes, local (spill) bytes per thread, blocks per
+// SM}. Returns a CUDA error code.
+extern "C" int ts2d_fused_kernel_info(int N, int H, int W, int C, int Cout, int* info) {
     Plan pl;
-    int err = make_plan(N, H, W, C, Cout, bn, splits, &pl);
+    int err = make_plan(N, H, W, C, Cout, &pl);
     if (err) return err;
     KernelFn kern = kernel_for(pl);
     cudaError_t e = allow_smem(pl);
@@ -1082,11 +951,10 @@ extern "C" int ts2d_fused_kernel_info(int N, int H, int W, int C, int Cout, int 
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, pl.smem);
     if (e != cudaSuccess) return (int)e;
-    const int vals[12] = {pl.bn, pl.tile, pl.mode, pl.p.splits,
-                          pl.p.resident, pl.p.units, pl.grid,
+    const int vals[11] = {pl.bn, pl.tile, pl.mode, pl.p.resident, pl.p.units, pl.grid,
                           attr.numRegs, (int)attr.sharedSizeBytes, pl.smem,
                           (int)attr.localSizeBytes, blocks};
-    for (int i = 0; i < 12; ++i) info[i] = vals[i];
+    for (int i = 0; i < 11; ++i) info[i] = vals[i];
     return 0;
 }
 
@@ -1101,9 +969,9 @@ extern "C" int ts2d_fused_norm_act_conv(const void* x, const float* scale,
                                         const float* b, void* y, float* scratch,
                                         float* stats, int N, int H, int W, int C,
                                         int Cout, float slope, int apply_normact,
-                                        int bn, int splits, void* stream) {
+                                        void* stream) {
     Plan pl;
-    int err = make_plan(N, H, W, C, Cout, bn, splits, &pl);
+    int err = make_plan(N, H, W, C, Cout, &pl);
     if (err) return err;
     if (apply_normact && (!scale || !shift)) return cudaErrorInvalidValue;
     CUtensorMap xm, wm;
@@ -1116,9 +984,7 @@ extern "C" int ts2d_fused_norm_act_conv(const void* x, const float* scale,
     p.y = static_cast<bf16*>(y);
     p.act = apply_normact != 0;
     p.slope = slope;
-    p.prof = g_prof;
-    float* partial = scratch;
-    p.out = p.splits > 1 ? scratch + (long long)N * pl.stat_tiles * 2 * Cout : partial;
+    p.out = scratch;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     KernelFn kern = kernel_for(pl);
     cudaError_t e = allow_smem(pl);
@@ -1126,25 +992,12 @@ extern "C" int ts2d_fused_norm_act_conv(const void* x, const float* scale,
     kern<<<pl.grid, THREADS, pl.smem, st>>>(xm, wm, p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    if (p.splits > 1) {
-        splitk_finish_kernel<<<dim3(pl.stat_tiles, N), 256, 0, st>>>(
-            p.out, b, p.y, partial, N, H * W, Cout, p.splits);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    // partials (grid, N, 2, Cout) of an accumulating kernel, else (N, tiles
-    // or chunks of the split pass, 2, Cout)
+    // partials (grid, N, 2, Cout) of an accumulating kernel, else (N, tiles,
+    // 2, Cout)
     const long long row = 2LL * Cout;
     const int total = N * 2 * Cout;
     stats_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-        partial, stats, N, Cout, pl.stat_tiles, p.accum ? N * row : row,
+        scratch, stats, N, Cout, pl.stat_tiles, p.accum ? N * row : row,
         p.accum ? row : pl.stat_tiles * row);
     return (int)cudaGetLastError();
 }
-
-#ifdef TS2D_FUSED_PROFILE
-// the per-block phase-cycle buffer of the next launches (null: off); it
-// holds grid * 4 * 8 long longs
-extern "C" void ts2d_fused_profile(void* buf) { g_prof = static_cast<long long*>(buf); }
-
-#endif

@@ -131,30 +131,29 @@ def _library():
     lib = library('fused_block')
     fn = lib.ts2d_fused_norm_act_conv
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.ts2d_fused_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.ts2d_fused_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.ts2d_fused_scratch_floats.restype = ctypes.c_longlong
-    lib.ts2d_fused_kernel_info.argtypes = ([ctypes.c_int] * 7
+    lib.ts2d_fused_kernel_info.argtypes = ([ctypes.c_int] * 5
                                            + [ctypes.POINTER(ctypes.c_int)])
     lib.ts2d_fused_kernel_info.restype = ctypes.c_int
     return lib
 
 
-KERNEL_INFO_KEYS = ('bn', 'tile_pixels', 'mode', 'splits', 'resident_weights',
+KERNEL_INFO_KEYS = ('bn', 'tile_pixels', 'mode', 'resident_weights',
                     'units', 'grid', 'registers', 'static_smem',
                     'dynamic_smem', 'local_bytes', 'blocks_per_sm')
 
 
-def kernel_info(N: int, H: int, W: int, C: int, Cout: int, bn: int = 0,
-                splits: int = 0) -> dict:
+def kernel_info(N: int, H: int, W: int, C: int, Cout: int) -> dict:
     """The launch configuration the kernel takes for this shape and its
     instantiation's resources (registers per thread at entry, shared memory,
     spills, blocks per SM), from cudaFuncGetAttributes and the occupancy
     calculator. Needs the card."""
     lib = _library()
     info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
-    err = lib.ts2d_fused_kernel_info(N, H, W, C, Cout, bn, splits, info)
+    err = lib.ts2d_fused_kernel_info(N, H, W, C, Cout, info)
     if err != 0:
         raise RuntimeError(f'fused block kernel info failed: error {err}')
     return dict(zip(KERNEL_INFO_KEYS, info))
@@ -163,16 +162,13 @@ def kernel_info(N: int, H: int, W: int, C: int, Cout: int, bn: int = 0,
 def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
                              shift: Optional[torch.Tensor], w: torch.Tensor,
                              b: torch.Tensor, slope: float = 0.01,
-                             apply_normact: bool = True, *, bn: int = 0,
-                             splits: int = 0
+                             apply_normact: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream. x and w bf16, b (and
     scale, shift when ``apply_normact``) fp32, all contiguous CUDA tensors
     on one device; raises on anything else. Channel counts the kernel does
-    not take are zero-padded first (:func:`pad_channels`). ``bn`` (32, 64
-    or 128 output channels per tile) and ``splits`` (input-channel ranges
-    summed by a second pass) override the automatic tile choice; 0 keeps
-    it. Counts each launch in ``fused_norm_act_conv_cuda.launches``."""
+    not take are zero-padded first (:func:`pad_channels`). Counts each
+    launch in ``fused_norm_act_conv_cuda.launches``."""
     N, C, Cout = _check_shapes(x, scale, shift, w, b, apply_normact)
     named = [('x', x, torch.bfloat16), ('w', w, torch.bfloat16),
              ('b', b, torch.float32)]
@@ -202,10 +198,10 @@ def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
     sh = shift.data_ptr() if apply_normact else None
     with torch.cuda.device(x.device):
         # the scratch size depends on the device's SM count
-        floats = lib.ts2d_fused_scratch_floats(N, H, W, Cp, Cop, bn, splits)
+        floats = lib.ts2d_fused_scratch_floats(N, H, W, Cp, Cop)
         if floats < 0:
             raise ValueError(f'unsupported fused block launch N={N}, H={H}, '
-                             f'W={W}, C={Cp}, Cout={Cop}, bn={bn}')
+                             f'W={W}, C={Cp}, Cout={Cop}')
         y = torch.empty((N, H, W, Cop), dtype=torch.bfloat16, device=x.device)
         stats = torch.empty((N, 2, Cop), dtype=torch.float32, device=x.device)
         scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
@@ -213,7 +209,7 @@ def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
         err = lib.ts2d_fused_norm_act_conv(
             x.data_ptr(), sc, sh, w.data_ptr(), b.data_ptr(), y.data_ptr(),
             scratch.data_ptr(), stats.data_ptr(), N, H, W, Cp, Cop,
-            float(slope), int(bool(apply_normact)), bn, splits, stream)
+            float(slope), int(bool(apply_normact)), stream)
     if err != 0:
         what = (f'tensor-map encode failed: CUresult {err - 1000}'
                 if err >= 1000 else f'CUDA error {err}')
