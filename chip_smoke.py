@@ -9,12 +9,16 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes, with bitwise-repeat
    checks; kernel, plain and library-yardstick times with CUDA events, and
-   each kernel's bound at those shapes. Times are eager per call (CUDA
+   each kernel's bound at those shapes. The prefilter kernel must equal its
+   chunked plain version bit for bit and agree with the sequential one
+   (rtol 1e-5 / atol 1e-6), the reference formula and scipy; it is timed
+   at the main path's pair of launches and at the batch-8 pair, beside two
+   empty launches (the launch floor). Times are eager per call (CUDA
    events over back-to-back calls, the host's launch work included), the
    fused block's library yardstick the best of 3 rounds under cuDNN's
-   benchmark mode; beside them the fused kernel's device time (a CUDA graph
-   of 20 calls, replayed), its tile and each instantiation's registers,
-   shared memory and blocks per SM.
+   benchmark mode; beside them each kernel's device time (a CUDA graph of
+   back-to-back calls, replayed), the fused block's tile and each
+   instantiation's registers, shared memory and blocks per SM.
 3. The main paths at full width: ``TS2D(...).predict(scan)`` with a random
    5-group / 117-label flagship ensemble (6-stage nnU-Net, features
    32..512, patch 256^2) on a clinical-spacing torso phantom CT
@@ -160,76 +164,131 @@ def prefilter_reference(x, axis):
     return np.moveaxis(c, 0, axis)
 
 
+def prefilter_bound_ms(passes):
+    """The least time of prefilter passes [(n, lines), ...], in ms: each
+    pass reads x once and writes y once; its operations (5 per sample and
+    the init series) go at the fp32 rate. Returns (bound, 'bytes' or
+    'operations')."""
+    nbytes = sum(2 * n * lines * 4 for n, lines in passes)
+    flops = sum(lines * (5 * n + 2 * PF.HORIZON) for n, lines in passes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+# edge shapes of the kernel's chunking (chunk L = 32, warm-up H = 18): n =
+# 2, 3, 4, 9, L-1, L, L+1, H+L, 2L+H+3 at inner = 1, 2, 33 and odd line
+# counts; a 3-D array along each axis; a line of 20000 samples at inner 2
+# (its slab exceeds shared memory: the global path)
+PREFILTER_EDGES = [((2, 77), 0), ((3, 41), 0), ((4, 45), 0), ((13, 1001), 0),
+                   ((37, 19), 1), ((9, 10, 11), 0), ((9, 10, 11), 1),
+                   ((9, 10, 11), 2), ((5, 9, 2), 1), ((31, 33), 0),
+                   ((32, 45), 0), ((33, 1), 0), ((3, 33, 2), 1), ((50, 33), 0),
+                   ((3, 85, 1), 1), ((3, 85, 2), 1), ((85, 33), 0),
+                   ((13, 1001), 1), ((3, 20000, 2), 1)]
+
+
 def check_prefilter():
     phase('kernel: bspline_prefilter')
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
 
-    def compare(x, axis):
+    def compare(x, axis, reference=True):
         nonlocal worst
         y = PF.bspline_prefilter_cuda(x, axis)
         torch.cuda.synchronize()
         if not torch.equal(y, PF.bspline_prefilter_cuda(x, axis)):
             raise SystemExit('prefilter kernel is not bitwise repeatable')
+        if not torch.equal(y, PF.bspline_prefilter_chunked_plain(x, axis)):
+            raise SystemExit(f'prefilter kernel differs from its chunked plain '
+                             f'version at {tuple(x.shape)} axis {axis}')
         plain = PF.bspline_prefilter_plain(x, axis)
         torch.testing.assert_close(y, plain, rtol=1e-5, atol=1e-6)
-        out, xs = y.cpu().numpy(), x.cpu().numpy()
-        np.testing.assert_allclose(out, prefilter_reference(xs, axis),
-                                   rtol=1e-4, atol=1e-5)
-        if x.shape[axis] >= 10:  # the reference's series meets scipy's
-            ref = ndi.spline_filter1d(xs.astype(np.float64), order=3,
-                                      axis=axis, mode='mirror')
-            np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+        if reference:
+            out, xs = y.cpu().numpy(), x.cpu().numpy()
+            np.testing.assert_allclose(out, prefilter_reference(xs, axis),
+                                       rtol=1e-4, atol=1e-5)
+            if x.shape[axis] >= 10:  # the reference's series meets scipy's
+                ref = ndi.spline_filter1d(xs.astype(np.float64), order=3,
+                                          axis=axis, mode='mirror')
+                np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
         worst = max(worst, float((y - plain).abs().max()))
         return y
 
-    # the main path: the (H, W, C=2) projection along axis 0, then axis 1
+    # the main path: the (H, W, C=2) projection along axis 0, then axis 1;
+    # the batch-8 shape of the micro-batching program along axes 1 and 2
     x = torch.randn((400, 512, 2), generator=gen).cuda()
-    y0 = compare(x, 0)
-    compare(y0, 1)
-    # edge shapes: n = 2, 3, 4; a line count that is not a multiple of 32;
-    # a 3-D array along each axis
-    for shape, axis in (((2, 77), 0), ((3, 41), 0), ((4, 45), 0),
-                        ((13, 1001), 0), ((37, 19), 1), ((9, 10, 11), 0),
-                        ((9, 10, 11), 1), ((9, 10, 11), 2)):
-        compare(torch.randn(shape, generator=gen).cuda(), axis)
-    print(f'max |kernel - plain| = {worst:.3g}')
+    compare(compare(x, 0), 1)
+    xb = torch.randn((8, 400, 512, 2), generator=gen).cuda()
+    compare(compare(xb, 1), 2)
+    for shape, axis in PREFILTER_EDGES:
+        # the float64 reference loop is slow at 20000 samples: the plain
+        # versions hold that one
+        compare(torch.randn(shape, generator=gen).cuda(), axis,
+                reference=shape[axis] < 20000)
+    print(f'kernel == chunked plain bitwise at every shape; max |kernel - '
+          f'sequential plain| = {worst:.3g}')
 
-    # times at the main-path shapes: one scan's pair of launches
-    def kernel():
-        return PF.bspline_prefilter_cuda(PF.bspline_prefilter_cuda(x, 0), 1)
-
-    def plain():
-        return PF.bspline_prefilter_plain(PF.bspline_prefilter_plain(x, 0), 1)
+    def pair(t, axes, fn):
+        return lambda: fn(fn(t, axes[0]), axes[1])
 
     # library yardstick: the dense n x n prefilter matrix (the filter of the
     # identity) applied by one batched matmul per axis, fp32 without TF32
-    mats = [PF.bspline_prefilter_plain(torch.eye(n, device='cuda'), 0)
-            for n in (400, 512)]
+    mats = {n: PF.bspline_prefilter_plain(torch.eye(n, device='cuda'), 0)
+            for n in (400, 512)}
 
     def library():
-        a = torch.matmul(mats[0], x.view(1, 400, 1024))
-        return torch.matmul(mats[1], a.view(400, 512, 2))
+        a = torch.matmul(mats[400], x.view(1, 400, 1024))
+        return torch.matmul(mats[512], a.view(400, 512, 2))
 
+    def library_b8():
+        a = torch.matmul(mats[400], xb.view(8, 400, 1024))
+        return torch.matmul(mats[512], a.view(3200, 512, 2)).view(xb.shape)
+
+    def empty_pair():  # the launch floor: two empty kernels
+        torch.cuda._sleep(0)
+        torch.cuda._sleep(0)
+
+    res = {}
     with exact_numerics():
-        torch.testing.assert_close(library(), kernel(), rtol=1e-4, atol=1e-5)
-        ms = cuda_ms(kernel, 200)
-        plain_ms = cuda_ms(plain, 5)
-        library_ms = cuda_ms(library, 200)
-
-    bound = 0.0
-    for n, lines in ((400, 1024), (512, 800)):
-        nbytes = 2 * n * lines * 4
-        flops = lines * (5 * n + 2 * PF.HORIZON)
-        bound += max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-    print(f'prefilter (400,512,2) axis 0 + axis 1: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, '
-          f'bound {bound:.5f} ms (bytes)')
+        torch.testing.assert_close(library(), pair(x, (0, 1), PF.prefilter_axis)(),
+                                   rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(library_b8(),
+                                   pair(xb, (1, 2), PF.prefilter_axis)(),
+                                   rtol=1e-4, atol=1e-5)
+        floor_ms, floor_dev = cuda_ms(empty_pair, 200), device_ms(empty_pair, 50)
+        for name, t, axes, lib, passes in (
+                ('main', x, (0, 1), library, ((400, 1024), (512, 800))),
+                ('batch8', xb, (1, 2), library_b8, ((400, 8192), (512, 6400)))):
+            kernel = pair(t, axes, PF.bspline_prefilter_cuda)
+            bound, by = prefilter_bound_ms(passes)
+            res[name] = {'ms': cuda_ms(kernel, 200),
+                         'device_ms': device_ms(kernel, 50),
+                         'plain_ms': cuda_ms(pair(t, axes, PF.bspline_prefilter_plain), 3),
+                         'library_ms': cuda_ms(lib, 100),
+                         'bound_ms': bound, 'bound_by': by}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        where = ('(400, 512, 2) axes 0, 1' if name == 'main'
+                 else '(8, 400, 512, 2) axes 1, 2')
+        print(f'prefilter {name} pair {where}: kernel {r["ms"]:.4f} ms eager, {r["device_ms"]:.4f} ms device '
+              f'({r["bound_ms"] / r["device_ms"]:.1%} of bound); plain '
+              f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
+              f'bound {r["bound_ms"]:.5f} ms ({r["bound_by"]})')
+    print(f'launch floor, two empty kernels (torch.cuda._sleep(0)): '
+          f'{floor_ms:.4f} ms eager, {floor_dev:.4f} ms device')
+    main = res['main']
     return {'name': 'bspline_prefilter', 'route': 'cuda',
             'source': 'totalsegmentator2d_tpu_torch/csrc/prefilter.cu',
             'replaces': 'totalsegmentator2d_tpu/ops/pallas/prefilter.py:36',
-            'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound, 'bound_by': 'bytes', 'library_ms': library_ms}
+            'max_abs_err': worst, 'ms': main['ms'],
+            'device_ms': main['device_ms'], 'launch_floor_ms': floor_dev,
+            'launch_floor_eager_ms': floor_ms, 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': main['library_ms'],
+            'batch8': {k: res['batch8'][k] for k in
+                       ('ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms')}}
 
 
 def fused_launches(arch, in_channels=2):

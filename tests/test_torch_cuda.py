@@ -6,8 +6,9 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerances: the prefilter kernel rounds where its plain version rounds
-(rtol 1e-5 / atol 1e-6); the fused block's outputs are bf16 values of two
+Tolerances: the prefilter kernel rounds where its chunked plain version
+rounds (``torch.equal``), and agrees with the sequential one to float32
+rounding (rtol 1e-5 / atol 1e-6); the fused block's outputs are bf16 values of two
 fp32 summation orders (y rtol/atol 0.05, stats rtol 0.03 / atol 0.5, the
 tests/test_013_pallas.py bars)."""
 
@@ -34,16 +35,28 @@ def rng():
     return np.random.default_rng(0)
 
 
+# the main path's projection, the batch-8 shape, and edges of the chunking
+# (n = 2, 3, 9, L-1, L, L+1, H+L, 2L+H+3) at inner = 1, 2, 33 and at line
+# counts that are not multiples of a block; (3, 20000, 2) takes the global
+# path with a small inner (its (n, inner) slab exceeds shared memory)
+PREFILTER_SHAPES = [((400, 512, 2), 0), ((400, 512, 2), 1),
+                    ((8, 400, 512, 2), 1), ((8, 400, 512, 2), 2),
+                    ((2, 77), 0), ((13, 1001), 0), ((13, 1001), 1),
+                    ((9, 10, 11), 2), ((5, 3, 33), 1), ((7, 9, 2), 1),
+                    ((31, 45), 0), ((32, 45), 0), ((33, 1), 0),
+                    ((50, 33), 0), ((3, 85, 1), 1), ((3, 85, 2), 1),
+                    ((85, 33), 0), ((3, 20000, 2), 1), ((20000,), 0)]
+
+
 class TestPrefilterKernel:
-    @pytest.mark.parametrize('shape,axis', [((400, 512, 2), 0),
-                                            ((400, 512, 2), 1), ((2, 77), 0),
-                                            ((13, 1001), 0), ((9, 10, 11), 2)])
+    @pytest.mark.parametrize('shape,axis', PREFILTER_SHAPES)
     def test_matches_plain_version(self, cuda, rng, shape, axis):
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
         before = PF.bspline_prefilter_cuda.launches
         out = PF.prefilter_axis(x, axis)
         torch.cuda.synchronize()
         assert PF.bspline_prefilter_cuda.launches == before + 1
+        assert torch.equal(out, PF.bspline_prefilter_chunked_plain(x, axis))
         torch.testing.assert_close(out, PF.bspline_prefilter_plain(x, axis),
                                    rtol=1e-5, atol=1e-6)
         if x.shape[axis] >= 10:  # the reference's series meets scipy's
@@ -51,6 +64,35 @@ class TestPrefilterKernel:
                                       axis=axis, mode='mirror')
             np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=1e-4,
                                        atol=1e-5)
+
+    def test_bitwise_repeatable(self, cuda, rng):
+        x = torch.from_numpy(rng.standard_normal((8, 400, 512, 2)).astype(
+            np.float32)).to(cuda)
+        for axis in (1, 2):
+            assert torch.equal(PF.prefilter_axis(x, axis),
+                               PF.prefilter_axis(x, axis))
+
+    @pytest.mark.parametrize('shape,axis', [((40, 64), 0), ((3, 40, 2), 1)])
+    def test_misaligned_input(self, cuda, rng, shape, axis):
+        # a contiguous view 4 bytes past a 16-byte boundary: the tile path
+        # takes its scalar loads, the slab path its unaligned copy
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        xm = buf[1:].view(shape)
+        xm.copy_(x)
+        assert torch.equal(PF.prefilter_axis(xm, axis),
+                           PF.bspline_prefilter_chunked_plain(x, axis))
+
+    def test_cuda_tensor_never_takes_a_plain_version(self, cuda, rng,
+                                                     monkeypatch):
+        def refuse(*args, **kwargs):
+            raise AssertionError('a plain version ran on a CUDA tensor')
+        monkeypatch.setattr(PF, 'bspline_prefilter_plain', refuse)
+        monkeypatch.setattr(PF, 'bspline_prefilter_chunked_plain', refuse)
+        x = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
+        before = PF.bspline_prefilter_cuda.launches
+        PF.prefilter_axis(x.to(cuda), 0)
+        assert PF.bspline_prefilter_cuda.launches == before + 1
 
 
 def _operands(rng, device, N, H, W, C, Co):
