@@ -13,12 +13,15 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    chunked plain version bit for bit and agree with the sequential one
    (rtol 1e-5 / atol 1e-6), the reference formula and scipy; it is timed
    at the main path's pair of launches and at the batch-8 pair, beside two
-   empty launches (the launch floor). Times are eager per call (CUDA
-   events over back-to-back calls, the host's launch work included), the
-   fused block's library yardstick the best of 3 rounds under cuDNN's
-   benchmark mode; beside them each kernel's device time (a CUDA graph of
-   back-to-back calls, replayed), the fused block's tile and each
-   instantiation's registers, shared memory and blocks per SM.
+   empty launches (the launch floor). The fused block is checked and timed
+   at the 11 flagship shapes at N = 16 (the main path's forward batch) and
+   N = 128 (the batched serving program's: 8 scans), per scan and per
+   batch. Times are eager per call (CUDA events over back-to-back calls,
+   the host's launch work included), the fused block's library yardstick
+   the best of 3 rounds under cuDNN's benchmark mode; beside them each
+   kernel's device time (a CUDA graph of back-to-back calls, replayed), the
+   fused block's tile and each instantiation's registers, shared memory
+   and blocks per SM.
 3. The main paths at full width: ``TS2D(...).predict(scan)`` with a random
    5-group / 117-label flagship ensemble (6-stage nnU-Net, features
    32..512, patch 256^2) on a clinical-spacing torso phantom CT
@@ -34,7 +37,20 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    at a reduced architecture: mask agreement >= 0.999 exact, >= 0.99 fast.
 5. A set whose groups disagree on precision, through the per-model engines
    on the card: both kernels must run.
-6. One JSON line with every kernel, then the card line, then the device
+6. Serving at full width, at 'exact' and 'fast': (a) 8 phantoms (seeds
+   7-14, one geometry) through ``predict_array_async`` in one 8-scan
+   batched program, with the launch counts set to 0 just before it and
+   read just after (prefilter 2, fused block 80 fast / 0 exact), each mask
+   against the solo program's (>= 0.999 exact, >= 0.99 fast), seconds per
+   batch, peak memory and the device-busy share of a profiled batch; (b)
+   16 phantoms through ``TS2D.predict_async`` / ``finish_predict`` with an
+   in-flight window of 8, batching on and off: scans/s, latency, the
+   batcher's occupancy; a result download with 1 and 4 ``fetch_split``
+   slabs; (c) the HTTP server around the fast set: 8 concurrent POSTs of
+   the uncompressed phantom NRRD, each response >= 0.99 against the solo
+   result, ``/metrics`` with no errors and coalesced scans.
+7. One JSON line with every kernel (the batch-8 figures and launches per
+   batch beside the main path's), then the card line, then the device
    line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
@@ -88,6 +104,8 @@ FLAGSHIP = dict(n_stages=6, features=(32, 64, 128, 256, 512, 512),
                 patch=(256, 256), spacing=(1.5, 1.5))
 GROUPS = {'cardiac': 24, 'muscles': 21, 'organs': 22, 'ribs': 24,
           'vertebrae': 26}
+# the main path's forward batch per scan: 4 tiles x 4 mirrors
+SOLO_BATCH = 16
 # reduced architecture for the GPU-vs-CPU comparison
 SMALL = dict(n_stages=4, features=(8, 16, 32, 32), patch=(64, 64),
              spacing=(1.5, 1.5))
@@ -360,7 +378,6 @@ FUSED_EDGES = [(2, 9, 8, 8, 8, True), (2, 9, 8, 8, 8, False),
 def check_fused_block():
     phase('kernel: fused_norm_act_conv')
     gen = torch.Generator().manual_seed(1)
-    batch = 16  # the main path's forward batch: 4 tiles x 4 mirrors
 
     def operands(N, H, W, C, Co):
         x = torch.randn((N, H, W, C), generator=gen).cuda().to(torch.bfloat16)
@@ -390,87 +407,98 @@ def check_fused_block():
         _, err = check(operands(N, H, W, C, Co), act)
         worst = max(worst, err)
         print(f'edge {(N, H, W, C, Co, act)}: max |y - plain| {err:.4g}')
-    for H, W, C, Co, act in shapes:
-        N = batch
-        args = operands(N, H, W, C, Co)
-        y, err = check(args, act)
-        worst = max(worst, err)
-        w_oihw = args[3].permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        b16 = args[4].to(torch.bfloat16)
+    # the main path's forward batch (4 tiles x 4 mirrors), then the batched
+    # serving program's (8 scans of it); fewer timing rounds at 128
+    for N, iters in ((SOLO_BATCH, 20), (8 * SOLO_BATCH, 5)):
+        for H, W, C, Co, act in shapes:
+            args = operands(N, H, W, C, Co)
+            y, err = check(args, act)
+            worst = max(worst, err)
+            w_oihw = args[3].permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b16 = args[4].to(torch.bfloat16)
 
-        def library():
-            # cuDNN's bf16 conv (channels_last) + torch normact + stats sum
-            z = args[0].float()
-            if act:
-                z = z * args[1][:, None, None, :] + args[2][:, None, None, :]
-                z = torch.where(z >= 0, z, z * 0.01)
-            out = F.conv2d(z.to(torch.bfloat16).permute(0, 3, 1, 2), w_oihw,
-                           b16, padding=1)
-            o32 = out.float()
-            return out, torch.stack([o32.sum(dim=(2, 3)),
-                                     o32.square().sum(dim=(2, 3))], dim=1)
+            def library():
+                # cuDNN's bf16 conv (channels_last) + torch normact + stats
+                z = args[0].float()
+                if act:
+                    z = z * args[1][:, None, None, :] + args[2][:, None, None, :]
+                    z = torch.where(z >= 0, z, z * 0.01)
+                out = F.conv2d(z.to(torch.bfloat16).permute(0, 3, 1, 2),
+                               w_oihw, b16, padding=1)
+                o32 = out.float()
+                return out, torch.stack([o32.sum(dim=(2, 3)),
+                                         o32.square().sum(dim=(2, 3))], dim=1)
 
-        def kernel():
-            return FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
+            def kernel():
+                return FB.fused_norm_act_conv_cuda(*args, apply_normact=act)
 
-        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                        deterministic=False, allow_tf32=False):
-            ly, _ = library()
-            torch.testing.assert_close(ly.permute(0, 2, 3, 1).float(),
-                                       y.float(), rtol=0.05, atol=0.05)
-            ms = cuda_ms(kernel, 20)
-            dev_ms = device_ms(kernel, 20)
-            plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
-                *args, apply_normact=act), 3)
-            rounds = [cuda_ms(library, 20) for _ in range(3)]
-            library_ms = min(rounds)
-        t_bytes, t_ops = fused_bounds_ms(N, H, W, C, Co)
-        bound = max(t_bytes, t_ops)
-        per_shape[(H, W, C, Co, act)] = (ms, plain_ms, library_ms, t_bytes,
-                                         t_ops, dev_ms)
-        info = FB.kernel_info(N, H, W, C, Co)
-        flop = 2 * 9 * C * Co * N * H * W
-        print(f'{(N, H, W, C, Co, "normact" if act else "conv")}: kernel '
-              f'{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} '
-              f'of bound; device {dev_ms:.4f} ms, {flop / dev_ms / 1e9:.1f} '
-              f'TFLOP/s, {bound / dev_ms:.1%}), plain {plain_ms:.4f}, '
-              f'library {library_ms:.4f} (rounds '
-              f'{[round(r, 4) for r in rounds]}), bound {bound:.5f} ms '
-              f'({"bytes" if t_bytes > t_ops else "operations"}), '
-              f'max |y - plain| {err:.4g}')
-        print(f'  tile: BN {info["bn"]}, {info["tile_pixels"]} pixels, '
-              f'{info["units"]} units on {info["grid"]} blocks, resident '
-              f'weights {info["resident_weights"]}; {info["registers"]} '
-              f'registers/thread at entry, shared {info["static_smem"]} '
-              f'static + {info["dynamic_smem"]} dynamic bytes, '
-              f'{info["local_bytes"]} local bytes, {info["blocks_per_sm"]} '
-              f'block(s)/SM')
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                ly, _ = library()
+                torch.testing.assert_close(ly.permute(0, 2, 3, 1).float(),
+                                           y.float(), rtol=0.05, atol=0.05)
+                ms = cuda_ms(kernel, iters)
+                dev_ms = device_ms(kernel, iters)
+                plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
+                    *args, apply_normact=act), 3 if N == SOLO_BATCH else 1)
+                rounds = [cuda_ms(library, iters) for _ in range(3)]
+                library_ms = min(rounds)
+            del args, y
+            t_bytes, t_ops = fused_bounds_ms(N, H, W, C, Co)
+            bound = max(t_bytes, t_ops)
+            per_shape[(N, H, W, C, Co, act)] = (ms, plain_ms, library_ms,
+                                                t_bytes, t_ops, dev_ms)
+            info = FB.kernel_info(N, H, W, C, Co)
+            flop = 2 * 9 * C * Co * N * H * W
+            print(f'{(N, H, W, C, Co, "normact" if act else "conv")}: kernel '
+                  f'{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} '
+                  f'of bound; device {dev_ms:.4f} ms, {flop / dev_ms / 1e9:.1f} '
+                  f'TFLOP/s, {bound / dev_ms:.1%}), plain {plain_ms:.4f}, '
+                  f'library {library_ms:.4f} (rounds '
+                  f'{[round(r, 4) for r in rounds]}), bound {bound:.5f} ms '
+                  f'({"bytes" if t_bytes > t_ops else "operations"}), '
+                  f'max |y - plain| {err:.4g}')
+            print(f'  tile: BN {info["bn"]}, {info["tile_pixels"]} pixels, '
+                  f'{info["units"]} units on {info["grid"]} blocks, resident '
+                  f'weights {info["resident_weights"]}; {info["registers"]} '
+                  f'registers/thread at entry, shared {info["static_smem"]} '
+                  f'static + {info["dynamic_smem"]} dynamic bytes, '
+                  f'{info["local_bytes"]} local bytes, {info["blocks_per_sm"]} '
+                  f'block(s)/SM')
+        # give the graphs' memory pools back, so what follows allocates as
+        # it would alone
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
-    # give the graphs' memory pools back, so the main paths that follow
-    # allocate as they would alone
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-
-    # one scan: 5 groups x one forward of the 16-tile batch
-    per_scan = [per_shape[sh] for sh in per_forward for _ in GROUPS]
-    ms, plain_ms, library_ms = (sum(t[i] for t in per_scan) for i in range(3))
-    dev_ms = sum(t[5] for t in per_scan)
-    bound = sum(max(t[3], t[4]) for t in per_scan)
-    by_ops = sum(t[4] for t in per_scan) > sum(t[3] for t in per_scan)
-    print(f'fused block, one scan ({len(per_scan)} launches): kernel '
-          f'{ms:.4f} ms ({bound / ms:.1%} of bound; device {dev_ms:.4f} ms, '
-          f'{bound / dev_ms:.1%}), plain {plain_ms:.4f} ms, library '
-          f'{library_ms:.4f} ms, bound {bound:.4f} ms; max |y - plain| '
-          f'{worst:.4g}')
+    # one scan (N = 16) and one 8-scan batch (N = 128): 5 groups x one
+    # forward of the tile batch
+    totals = {}
+    for N, what in ((SOLO_BATCH, 'one scan'), (8 * SOLO_BATCH, 'one batch')):
+        runs = [per_shape[(N,) + sh] for sh in per_forward for _ in GROUPS]
+        ms, plain_ms, library_ms = (sum(t[i] for t in runs) for i in range(3))
+        dev_ms = sum(t[5] for t in runs)
+        bound = sum(max(t[3], t[4]) for t in runs)
+        by_ops = sum(t[4] for t in runs) > sum(t[3] for t in runs)
+        print(f'fused block, {what} (N = {N}, {len(runs)} launches): kernel '
+              f'{ms:.4f} ms ({bound / ms:.1%} of bound; device {dev_ms:.4f} ms, '
+              f'{bound / dev_ms:.1%}), plain {plain_ms:.4f} ms, library '
+              f'{library_ms:.4f} ms, bound {bound:.4f} ms; max |y - plain| '
+              f'{worst:.4g}')
+        totals[N] = {'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
+                     'bound_ms': bound,
+                     'bound_by': 'operations' if by_ops else 'bytes',
+                     'library_ms': library_ms}
+    solo = totals[SOLO_BATCH]
     return {'name': 'fused_norm_act_conv', 'route': 'cuda',
             'source': 'totalsegmentator2d_tpu_torch/csrc/fused_block.cu',
             'replaces': 'totalsegmentator2d_tpu/ops/pallas/fused_block.py:56',
-            'max_abs_err': worst, 'ms': ms, 'device_ms': dev_ms,
-            'plain_ms': plain_ms,
-            'bound_ms': bound, 'bound_by': 'operations' if by_ops else 'bytes',
-            'library_ms': library_ms}, len(per_scan)
+            'max_abs_err': worst, **solo,
+            'batch8': {k: totals[8 * SOLO_BATCH][k] for k in
+                       ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                        'bound_ms')}}, len(per_forward) * len(GROUPS)
 
 
 # -- the synthetic model database -------------------------------------------
@@ -637,6 +665,29 @@ def conv_flops(arch, h, w):
     return total + 2 * feats[0] * max(GROUPS.values()) * h * w
 
 
+def profiled(fn):
+    """A torch.profiler trace of fn(): (profile, wall s, the CUDA kernel
+    events, device busy s = the union of their intervals)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, (cur_s, cur_e) = 0.0, spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    return prof, wall, kernels, (busy_us + cur_e - cur_s) / 1e6
+
+
 def breakdown(tool, scan, fast):
     """Where one scan's time goes: the host projection, the engine call
     (upload, device program, download, unpack), inside the program the one
@@ -644,9 +695,6 @@ def breakdown(tool, scan, fast):
     torch.profiler trace of one whole predict: device busy time (the union
     of kernel intervals) against wall time, and the kernels by device time."""
     from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     engine = tool._fused
     t0 = time.perf_counter()
@@ -679,28 +727,11 @@ def breakdown(tool, scan, fast):
           f'{kind}; bound {flops / peak * 1e3:.2f} ms at '
           f'{peak / 1e12:.0f} TFLOP/s), {dev_ms / 1e3:.4f} s device')
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tool.predict(scan)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, (cur_s, cur_e) = 0.0, spans[0]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy = (busy_us + cur_e - cur_s) / 1e6
+    _, wall, kernels, busy = profiled(lambda: tool.predict(scan))
     print(f'profiled predict: wall {wall:.4f} s, device busy {busy:.4f} s '
           f'({busy / wall:.1%}), {len(kernels)} kernel launches')
-    ops = {a.key: a.self_device_time_total / 1e3 for a in prof.key_averages()}
-    print('device ms by op: ' + ', '.join(
-        f'{k} {ops.get(k, 0.0):.2f}' for k in
-        ('aten::cudnn_convolution', 'aten::cudnn_convolution_transpose')))
+    # by kernel, not by op: the program runs on the micro-batcher's
+    # dispatcher thread, whose ops the profiler does not attribute
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name[:70]] += e.device_time_total / 1e3
@@ -762,6 +793,240 @@ def per_model_path():
         raise SystemExit(f'unexpected per-model segmentation {seg.array.shape}')
 
 
+# -- 6. serving at full width -------------------------------------------------
+
+SPACING_YX = (1.25, 0.78)   # the phantom's projection, array order (y, x)
+
+
+def phantoms(first, seeds):
+    """Torso phantoms of one geometry, made on 8 threads (numpy releases
+    the GIL in its array passes); ``first`` is the seed-7 scan already
+    made."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        rest = list(pool.map(lambda sd: torso_ct((400, 512, 512),
+                                                 (0.78, 0.78, 1.25), sd),
+                             seeds[1:]))
+    return [first] + rest
+
+
+def projection(scan):
+    """The host projection the fused engine takes: (400, 512, 2) float32."""
+    chans = project_multi(reorient(scan, 'RAI'), ['max', 'mean'], 'coronal')
+    return np.stack([c.array[:, 0, :] for c in chans], -1).astype(np.float32)
+
+
+def occupancy_delta(before, after):
+    return [a - b for a, b in zip(after['batch_occupancy'],
+                                  before['batch_occupancy'])]
+
+
+def serving_batched(tool, solo_tool, arrs, precision, fused_per_scan):
+    """6a: the 8 projections through predict_array_async with a linger
+    long enough that they ride one program, against the solo program of an
+    engine without a batcher. Returns (launches per batch, timings)."""
+    fast = precision == 'fast'
+    phase(f'serving ({precision}): 8 scans through the batched program')
+    engine, solo = tool._fused, solo_tool._fused
+    shapes = {engine._crop(a)[0].shape for a in arrs}
+    if len(shapes) != 1:
+        raise SystemExit(f'the 8 phantoms crop to several shapes: {shapes}')
+    refs = [solo.predict_array(a, SPACING_YX) for a in arrs]
+    engine.set_batch_linger(600_000.0)
+
+    def batch():
+        handles = [engine.predict_array_async(a, SPACING_YX) for a in arrs]
+        outs = [engine.finish_array(h) for h in handles]
+        torch.cuda.synchronize()
+        return outs
+
+    expect = {'bspline_prefilter': 2,
+              'fused_norm_act_conv': fused_per_scan if fast else 0}
+    before = engine._batcher.stats()
+    reset_launches()
+    outs = batch()
+    launches = read_launches()
+    occ = occupancy_delta(before, engine._batcher.stats())
+    print(f'launches per batch: {launches}; programs by occupancy {occ}')
+    if occ != [0] * 7 + [1]:
+        raise SystemExit(f'the 8 scans did not ride one program: {occ}')
+    if launches != expect:
+        raise SystemExit(f'kernel launches per batch {launches}, expected '
+                         f'{expect}')
+    bar = 0.99 if fast else 0.999
+    agree = [float((o == r).mean()) for o, r in zip(outs, refs)]
+    print(f'mask agreement batched vs solo per scan: '
+          f'{[round(a, 6) for a in agree]}')
+    if min(agree) < bar:
+        raise SystemExit(f'batched/solo mask agreement {min(agree)} < {bar}')
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, wall, kernels, busy = profiled(batch)
+    engine.set_batch_linger(0.0)
+    per_batch = float(np.median(times))
+    print(f'batched ({precision}): {per_batch:.4f} s per batch of 8, '
+          f'{per_batch / 8:.4f} s per scan (median of runs '
+          f'{[round(t, 4) for t in times]}); peak device memory {peak:.2f} '
+          f'GiB; profiled batch: wall {wall:.4f} s, device busy {busy:.4f} '
+          f's ({busy / wall:.1%}), {len(kernels)} kernel launches')
+    return launches, {'s_per_batch': per_batch, 'peak_gib': peak,
+                      'busy_share': busy / wall}
+
+
+def serving_throughput(tools, scans, precision):
+    """6b: 16 in-memory scans through TS2D.predict_async / finish_predict
+    with ScanPipeline's in-flight window of 8, batching on and off."""
+    from collections import deque
+    phase(f'serving ({precision}): 16 scans, in-flight window 8')
+    for batching, tool in tools:
+        batcher = tool._fused._batcher
+        before = batcher.stats() if batcher else None
+        pending, lat = deque(), []
+
+        def finish():
+            t_sub, handle = pending.popleft()
+            tool.finish_predict(handle)
+            lat.append(time.perf_counter() - t_sub)
+
+        t0 = time.perf_counter()
+        for scan in scans:
+            pending.append((time.perf_counter(), tool.predict_async(scan)))
+            while len(pending) > 8:
+                finish()
+        while pending:
+            finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        occ = (occupancy_delta(before, batcher.stats()) if batcher
+               else 'no batcher')
+        print(f'batching={batching}: {len(scans) / wall:.3f} scans/s '
+              f'({wall:.3f} s), latency p50 {np.percentile(lat, 50):.4f} s, '
+              f'p95 {np.percentile(lat, 95):.4f} s; programs by occupancy '
+              f'{occ}')
+
+
+def fetch_times():
+    """One full-width result download (the packed 117 labels of a scan,
+    400 x 512 x 15 bytes, and of an 8-scan batch) with 1 and with 4
+    fetch_split slabs, interleaved, median of 20."""
+    from totalsegmentator2d_tpu_torch.inference.ensemble_engine import \
+        fetch_split
+    for shape in ((400, 512, 15), (8, 400, 512, 15)):
+        dev = torch.randint(0, 256, shape, dtype=torch.uint8, device='cuda')
+        ref = dev.cpu().numpy()
+        times = {1: [], 4: []}
+        for _ in range(20):
+            for k in (1, 4):
+                ev = torch.cuda.Event()
+                ev.record()
+                t0 = time.perf_counter()
+                out = fetch_split(dev, streams=k, ready=ev)
+                times[k].append(time.perf_counter() - t0)
+                if not np.array_equal(out, ref):
+                    raise SystemExit('fetch_split changed the result')
+        print(f'download of {shape} ({dev.numel() / 1e6:.2f} MB): '
+              + ', '.join(f'{k} slab(s) {np.median(t) * 1e3:.3f} ms'
+                          for k, t in times.items()))
+
+
+def serving_http(tool, scan, solo_seg):
+    """6c: TS2DServer around the fast flagship TS2D, warmed up on the
+    production wire; 8 concurrent POSTs of one uncompressed phantom NRRD."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from totalsegmentator2d_tpu_torch.io import write_image
+    from totalsegmentator2d_tpu_torch.serve import TS2DServer, production_wire
+    phase('serving (fast): HTTP, 8 concurrent POST /predict')
+    engine = tool._fused
+    wire = production_wire(engine.spec.channel_names)
+    engine.warmup((400, 512), SPACING_YX, wire=wire)
+    path = os.path.join(WORK, 'scan.nrrd')
+    write_image(scan, path, compress=False)
+    with open(path, 'rb') as f:
+        payload = f.read()
+    # the server's throughput knob (--batch-linger-ms): requests that parse
+    # their 210 MB bodies at different speeds still meet in one program
+    engine.set_batch_linger(3000.0)
+    before = engine._batcher.stats()
+    with TS2DServer(tool, port=0) as srv:
+        def post(i):
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                f'http://127.0.0.1:{srv.port}/predict', data=payload,
+                method='POST')
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body = r.read()
+                status = r.status
+            return status, body, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            results = list(pool.map(post, range(8)))
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(
+                f'http://127.0.0.1:{srv.port}/metrics') as r:
+            metrics = json.loads(r.read())
+    engine.set_batch_linger(0.0)
+    agree = []
+    for i, (status, body, _) in enumerate(results):
+        if status != 200:
+            raise SystemExit(f'POST /predict answered {status}')
+        out = os.path.join(WORK, f'resp{i}.seg.nrrd')
+        with open(out, 'wb') as f:
+            f.write(body)
+        seg = read_image(out)
+        if seg.ncomponents != 117 or seg.array.shape != solo_seg.shape:
+            raise SystemExit(f'unexpected response {seg.array.shape}')
+        agree.append(float((seg.array == solo_seg).mean()))
+    lat = [r[2] for r in results]
+    print(f'HTTP: {len(results) / wall:.3f} requests/s ({wall:.3f} s for 8, '
+          f'{len(payload) / 2**20:.0f} MiB each), latency p50 '
+          f'{np.percentile(lat, 50):.3f} s, max {max(lat):.3f} s; agreement '
+          f'with the solo result {[round(a, 6) for a in agree]}')
+    # the batcher's counters are the tool's whole life: this run's share
+    coalesced = (metrics['batch_scans_coalesced']
+                 - before['batch_scans_coalesced'])
+    print(f'metrics: {metrics}; this run: programs by occupancy '
+          f'{occupancy_delta(before, metrics)}, {coalesced} scans coalesced')
+    if min(agree) < 0.99:
+        raise SystemExit(f'HTTP/solo mask agreement {min(agree)} < 0.99')
+    if (metrics['predict_requests'] != 8 or metrics['predict_errors'] != 0
+            or coalesced <= 0):
+        raise SystemExit(f'unexpected serving metrics {metrics}')
+
+
+def serving(db, first, fused_per_scan):
+    """Phase 6: the serving path at full width, both precisions."""
+    t0 = time.perf_counter()
+    scans = phantoms(first, list(range(7, 23)))
+    arrs = [projection(sc) for sc in scans[:8]]
+    print(f'16 phantoms and 8 projections in {time.perf_counter() - t0:.1f} s')
+    launches = {}
+    for precision in ('exact', 'fast'):
+        param = FAST if precision == 'fast' else None
+        with TS2D(key='ts2d-v9-flagship', use_remote=False, local=db,
+                  param=param) as tool, \
+                TS2D(key='ts2d-v9-flagship', use_remote=False, local=db,
+                     param=param, batching=False) as solo_tool:
+            launches[precision], _ = serving_batched(
+                tool, solo_tool, arrs, precision, fused_per_scan)
+            serving_throughput([(True, tool), (False, solo_tool)], scans,
+                               precision)
+            if precision == 'fast':
+                fetch_times()
+                solo_seg = solo_tool.predict(first).get_segmentation().array
+                serving_http(tool, first, solo_seg)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches['fast']
+
+
 def main():
     shutil.rmtree(WORK, ignore_errors=True)
     smi = device_info()
@@ -781,11 +1046,14 @@ def main():
     gpu_vs_cpu('exact', 0.999)
     gpu_vs_cpu('fast', 0.99)
     per_model_path()
+    per_batch = serving(db, scan, fused_per_scan)
     kernels = [prefilter, fused]
     for k in kernels:
         k['launches'] = launches[k['name']]
-        if k['launches'] < 1:
-            raise SystemExit(f'{k["name"]} did not run on the main path')
+        k['batch8']['launches'] = per_batch[k['name']]
+        if k['launches'] < 1 or k['batch8']['launches'] < 1:
+            raise SystemExit(f'{k["name"]} did not run on the main path or '
+                             f'the batched serving path')
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

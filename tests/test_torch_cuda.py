@@ -10,7 +10,10 @@ Tolerances: the prefilter kernel rounds where its chunked plain version
 rounds (``torch.equal``), and agrees with the sequential one to float32
 rounding (rtol 1e-5 / atol 1e-6); the fused block's outputs are bf16 values of two
 fp32 summation orders (y rtol/atol 0.05, stats rtol 0.03 / atol 0.5, the
-tests/test_013_pallas.py bars)."""
+tests/test_013_pallas.py bars), also at the batched program's forward
+batch (N = 128). The batched serving program must launch both kernels at
+its shapes, and 8 exact predicts on 8 threads must equal 8 sequential ones
+bit for bit (the exact-numerics flags are process-wide)."""
 
 import numpy as np
 import pytest
@@ -175,3 +178,134 @@ class TestFusedBlockKernel:
             FB.fused_norm_act_conv_cuda(x, sc.cpu(), sh, wp, b)
         with pytest.raises(ValueError, match='aligned'):
             FB.fused_norm_act_conv(_misaligned(x), sc, sh, wp, b)
+
+
+# -- the batched serving program on the card ---------------------------------
+
+# the fused block at the batched program's forward batch, N = 8 scans x 4
+# tiles x 4 mirrors: the stage-0 shape and the decoder's concat shape of the
+# flagship U-Net (256^2, C 32 -> 32 and 64 -> 32)
+BATCHED_FUSED_SHAPES = [(128, 256, 256, 32, 32, True),
+                        (128, 256, 256, 64, 32, False)]
+
+
+@pytest.mark.parametrize('N,H,W,C,Co,act', BATCHED_FUSED_SHAPES)
+def test_fused_block_at_the_batched_forward_batch(cuda, rng, N, H, W, C, Co,
+                                                  act):
+    args = _operands(rng, cuda, N, H, W, C, Co)
+    y, st = FB.fused_norm_act_conv(*args, apply_normact=act)
+    y2, st2 = FB.fused_norm_act_conv(*args, apply_normact=act)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    ry, rst = FB.fused_norm_act_conv_plain(*args, apply_normact=act)
+    torch.testing.assert_close(y.float(), ry.float(), rtol=0.05, atol=0.05)
+    torch.testing.assert_close(st, rst, rtol=0.03, atol=0.5)
+
+
+def _ensemble(cuda, fast, **kw):
+    """A 2-group ensemble of small random U-Nets (features 32-64-64, patch
+    64^2, plan spacing 1.5 mm) on the card."""
+    from totalsegmentator2d_tpu_torch.inference import EnsembleEngine
+    from totalsegmentator2d_tpu_torch.models.plans import parse_model_spec
+    from totalsegmentator2d_tpu_torch.models.unet import UNet
+    specs, params = [], []
+    for i, n_labels in enumerate((3, 4)):
+        plans = {'configurations': {'2d': {
+            'patch_size': [64, 64], 'spacing': [1.5, 1.5],
+            'normalization_schemes': ['ZScoreNormalization'] * 2,
+            'use_mask_for_norm': [False, False],
+            'architecture': {'arch_kwargs': {
+                'n_stages': 3, 'features_per_stage': [32, 64, 64],
+                'kernel_sizes': [[3, 3]] * 3,
+                'strides': [[1, 1], [2, 2], [2, 2]],
+                'n_conv_per_stage': [2] * 3,
+                'n_conv_per_stage_decoder': [2] * 2, 'conv_bias': True,
+                'norm_op_kwargs': {'eps': 1e-05, 'affine': True},
+                'nonlin_kwargs': {'inplace': True}}}}}}
+        dataset = {'channel_names': {'0': 'max', '1': 'mean'},
+                   'labels': {'background': 0,
+                              **{f'l{i}-{j}': j + 1 for j in range(n_labels)}},
+                   'multilabel': True}
+        spec = parse_model_spec(plans, dataset)
+        torch.manual_seed(10 + i)
+        specs.append(spec)
+        params.append([UNet(spec.arch).state_dict()])
+    return EnsembleEngine(specs, params, device=cuda,
+                          compute_dtype=torch.bfloat16 if fast else None, **kw)
+
+
+def _scans(rng, n, shape=(130, 96)):
+    return [(rng.standard_normal(shape + (2,)) * 50 + 100).astype(np.float32)
+            for _ in range(n)]
+
+
+def test_batched_program_launches_both_kernels(cuda, rng, monkeypatch):
+    """8 scans through one batched fast program: the prefilter runs twice
+    on the (8, H, W, 2) stack, along axes 1 and 2, and the fused block as
+    often as in one solo scan, each launch on 8 times the solo batch."""
+    seen = []
+    pf, fb = PF.bspline_prefilter_cuda, FB.fused_norm_act_conv_cuda
+
+    def spy_pf(x, axis):
+        seen.append(('prefilter', tuple(x.shape), axis))
+        return pf(x, axis)
+
+    def spy_fb(x, *args, **kwargs):
+        seen.append(('fused', x.shape[0]))
+        return fb(x, *args, **kwargs)
+
+    # the wrappers count their launches on the module's name, the spy here
+    spy_pf.launches = spy_fb.launches = 0
+    monkeypatch.setattr(PF, 'bspline_prefilter_cuda', spy_pf)
+    monkeypatch.setattr(FB, 'fused_norm_act_conv_cuda', spy_fb)
+    scans = _scans(rng, 8)
+    solo = _ensemble(cuda, True)
+    refs = [solo.predict_array(s, (1.0, 1.2)) for s in scans]
+    solo.close()
+    per_scan = seen[:len(seen) // 8]
+    assert per_scan[:2] == [('prefilter', (130, 96, 2), 0),
+                            ('prefilter', (130, 96, 2), 1)]
+    fused_solo = [s[1] for s in per_scan if s[0] == 'fused']
+    assert fused_solo and set(fused_solo) == {4 * 4}  # 4 tiles x 4 mirrors
+    seen.clear()
+    engine = _ensemble(cuda, True, auto_batch=8)
+    try:
+        engine.set_batch_linger(60_000.0)
+        handles = [engine.predict_array_async(s, (1.0, 1.2)) for s in scans]
+        outs = [engine.finish_array(h) for h in handles]
+        assert engine._batcher.stats()['batch_occupancy'][7] == 1
+    finally:
+        engine.close()
+    assert seen[:2] == [('prefilter', (8, 130, 96, 2), 1),
+                        ('prefilter', (8, 130, 96, 2), 2)]
+    fused = [s[1] for s in seen if s[0] == 'fused']
+    assert len(fused) == len(fused_solo) and set(fused) == {8 * 16}
+    for out, ref in zip(outs, refs):
+        assert float((out == ref).mean()) >= 0.99
+
+
+def test_concurrent_exact_predicts_equal_sequential(cuda, rng):
+    """exact_numerics is process-wide: 8 exact predicts on 8 threads at
+    once must give bitwise the masks of 8 sequential ones (a thread that
+    restored TF32 under another's program would change them)."""
+    import threading
+    scans = _scans(rng, 8, (160, 120))
+    engine = _ensemble(cuda, False)
+    try:
+        seq = [engine.predict_array(s, (1.0, 1.2)) for s in scans]
+        outs = [None] * 8
+        start = threading.Barrier(8)
+
+        def run(i):
+            start.wait()
+            outs[i] = engine.predict_array(scans[i], (1.0, 1.2))
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        for a, b in zip(outs, seq):
+            np.testing.assert_array_equal(a, b)
+        assert torch.backends.cuda.matmul.allow_tf32 is False  # still held
+    finally:
+        engine.close()

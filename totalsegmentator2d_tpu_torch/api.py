@@ -9,13 +9,22 @@ any other set runs model by model on per-model engines
 run on the CUDA card, or on the CPU when the caller passes
 ``device='cpu'``, at the models' precision ('exact' fp32 or 'fast' bf16).
 
+A fused set also serves: ``predict_async`` / ``finish_predict`` split a
+predict into its host half (projection, crop, dispatch) and its device
+half, and with ``batching=True`` (the default) concurrent or in-flight
+predictions coalesce into micro-batched programs of up to 8 scans
+(inference/batching.py); ScanPipeline and the HTTP server (serve.py) are
+built on these.
+
 Not ported yet, and raising when asked for: the remote model registry
-(``use_remote=True``), PNG visuals, async/batched prediction.
+(``use_remote=True``), PNG visuals, the quantized-shape bucket programs
+(``pad_quantum``).
 """
 
 from __future__ import annotations
 
 import os
+import traceback
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -47,22 +56,32 @@ class TS2D:
     :param param: extra dot-key parameters merged into every model config
     :param device: ``None`` = the CUDA card (raises if there is none);
         ``'cpu'`` runs on the CPU
+    :param batching: coalesce concurrent or in-flight predictions of a
+        fused set into micro-batched programs (inference/batching.py), the
+        throughput mode of serving and directory inputs. The batched
+        program runs other conv batch sizes and one-pass norm statistics,
+        which flips borderline sigmoid pixels, so results can depend on
+        load; pass False for bitwise run-to-run consistency.
     """
 
     def __init__(self, key: str = 'ts2d', use_remote: bool = True,
                  local: Optional[str] = None, param: Optional[dict] = None,
-                 device=None):
+                 device=None, batching: bool = True):
         self.device = resolve_device(device)
         if use_remote:
             raise NotImplementedError(
                 'The remote model registry is not ported to the PyTorch '
                 'package yet: pass use_remote=False with a local database')
+        self._batching = bool(batching)
         model_param = {'nnu.result.colors': get_label_colors()}
         if param:
             model_param.update(param)
 
         self.zoo = Zoo(local=local)
         self.models: Dict[str, HostedModel] = {}
+        # set before any model loads: a constructor that fails midway still
+        # reaches __del__ -> close()
+        self._fused: Optional[EnsembleEngine] = None
         ids = self.zoo.resolve(key, unique_model=True)
         if not ids:
             raise RuntimeError(f'No models were resolved for key: {key}')
@@ -109,7 +128,10 @@ class TS2D:
                     tile_step_size=(ref.tile_step_size
                                     if ref.tile_step_size is not None else 0.5),
                     use_mirroring=ref.use_mirroring,
-                    compute_dtype=ref.compute_dtype(), device=self.device)
+                    compute_dtype=ref.compute_dtype(), device=self.device,
+                    # concurrent requests coalesce into one batched
+                    # program; a lone request runs the solo program
+                    auto_batch=8 if self._batching else None)
             except ValueError as ex:  # preprocessing or architecture differ
                 log(f'Fused ensemble unavailable ({ex}); using per-model '
                     f'engines.')
@@ -130,11 +152,24 @@ class TS2D:
         self.close()
 
     def close(self) -> None:
-        """Release the models and their device memory."""
+        """Release the models and their device memory, and stop the fused
+        engine's micro-batch dispatcher."""
         for model in self.models.values():
             model.stop()
         self.models = {}
+        if self._fused is not None:
+            self._fused.close()
         self._fused = None
+
+    def __del__(self):
+        if getattr(self, 'models', None) or getattr(self, '_fused', None):
+            warn('The TS2D instance is being deleted without calling close() '
+                 '- cleaning up all models. Call close() explicitly before '
+                 'deleting the instance to avoid concurrency issues.')
+            try:
+                self.close()
+            except Exception:
+                traceback.print_exc()
 
     # -- prediction -------------------------------------------------------
 
@@ -163,6 +198,24 @@ class TS2D:
         :param merge: merge the per-group segmentations into one multilabel
             image (117 channels for ts2d-v2)
         """
+        input = self._input(input)
+        if self._fused is not None:
+            return self._predict_fused_finish(
+                self._predict_fused_dispatch(input, collapse, merge))
+        cache: dict = {}
+        result = {'models': {
+            id_: self._predict_model(id_, model, input, collapse, cache)
+            for id_, model in self.models.items()}}
+        if merge:
+            segs = [r['segmentation'] for r in result['models'].values()]
+            result['segmentation'] = (segs[0] if len(segs) == 1
+                                      else combine_segmentations(segs))
+        result['input'] = input
+        if cache.get('projections'):
+            result['projections'] = cache['projections']
+        return TS2D.Result(result)
+
+    def _input(self, input: Union[MedicalImage, str]) -> MedicalImage:
         if isinstance(input, str):
             input = read_image(input)
         if not isinstance(input, MedicalImage):
@@ -171,21 +224,34 @@ class TS2D:
                 f'{type(input).__name__}')
         if not self.models:
             raise RuntimeError('This TS2D instance is closed')
-        cache: dict = {}
-        if self._fused is not None:
-            result = self._predict_fused(input, collapse, merge, cache)
-        else:
-            result = {'models': {
-                id_: self._predict_model(id_, model, input, collapse, cache)
-                for id_, model in self.models.items()}}
-            if merge:
-                segs = [r['segmentation'] for r in result['models'].values()]
-                result['segmentation'] = (segs[0] if len(segs) == 1
-                                          else combine_segmentations(segs))
-        result['input'] = input
-        if cache.get('projections'):
-            result['projections'] = cache['projections']
-        return TS2D.Result(result)
+        return input
+
+    @property
+    def supports_async(self) -> bool:
+        """True when :meth:`predict_async` dispatches without waiting (a
+        fused set); False when it runs a blocking predict. Pipelines size
+        their in-flight window by it."""
+        return self._fused is not None
+
+    def predict_async(self, input: Union[MedicalImage, str],
+                      collapse: bool = False, merge: bool = True):
+        """Dispatch a prediction without waiting for the card; returns a
+        handle for :meth:`finish_predict`. Several scans in flight let the
+        fused engine's micro-batcher coalesce them into one program
+        (ScanPipeline does this for directory inputs). A set that does not
+        fuse runs a blocking predict here."""
+        input = self._input(input)
+        if self._fused is None:
+            return ('sync', self.predict(input, collapse=collapse,
+                                         merge=merge))
+        return ('fused', self._predict_fused_dispatch(input, collapse, merge))
+
+    def finish_predict(self, handle) -> 'TS2D.Result':
+        """Wait for a :meth:`predict_async` handle and return the Result."""
+        kind, data = handle
+        if kind == 'sync':
+            return data
+        return self._predict_fused_finish(data)
 
     @staticmethod
     def _model_input(original: MedicalImage, id_: str, channels: list,
@@ -234,10 +300,12 @@ class TS2D:
                 'input': input2d if collapse else model_input,
                 'segmentation': seg}
 
-    def _predict_fused(self, original: MedicalImage, collapse: bool,
-                       merge: bool, cache: dict) -> dict:
-        """The fused set: one ensemble run on the cropped 2D image; each
-        model's segmentation is its slice of the merged channels."""
+    def _predict_fused_dispatch(self, original: MedicalImage, collapse: bool,
+                                merge: bool):
+        """The host half of the fused set: projection, crop and dispatch of
+        one ensemble run on the 2D image, without waiting for the card.
+        Returns the context :meth:`_predict_fused_finish` takes."""
+        cache: dict = {}
         models = list(self.models.items())
         channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
         model_input = self._model_input(original, models[0][0], channels,
@@ -248,9 +316,20 @@ class TS2D:
         if not input2d.is_vector:
             arr = arr[..., None]
         spacing_yx = tuple(reversed(input2d.spacing))
-        merged2d = self._fused.predict_array(
+        handle = self._fused.predict_array_async(
             np.ascontiguousarray(arr, np.float32), spacing_yx)
+        return (handle, original, model_input, input2d, cache, collapse,
+                merge)
 
+    def _predict_fused_finish(self, ctx) -> 'TS2D.Result':
+        """The device half: wait for the ensemble's result and assemble the
+        Result; each model's segmentation is its slice of the merged
+        channels."""
+        (handle, original, model_input, input2d, cache, collapse,
+         merge) = ctx
+        models = list(self.models.items())
+        merged2d = self._fused.finish_array(handle)
+        native_2d = model_input.dim < 3
         per_model_input = input2d if collapse else model_input
         result: dict = {'models': {}}
         offset = 0
@@ -283,7 +362,10 @@ class TS2D:
             if not (collapse or native_2d):
                 seg_all = restore_dimension(seg_all, model_input)
             result['segmentation'] = seg_all
-        return result
+        result['input'] = original
+        if cache.get('projections'):
+            result['projections'] = cache['projections']
+        return TS2D.Result(result)
 
     # -- results ------------------------------------------------------------
 

@@ -2,12 +2,13 @@
 
     python -m totalsegmentator2d_tpu_torch -i <file|dir> -o <dir>
         [--local DB] [--model KEY] [--device cuda|cpu] [--collapse]
-        [--save-all] [--silent]
+        [--save-all] [--silent] [--no-batching] [--trace DIR]
 
 The flags and output naming follow the reference tool. Models come from the
 local database (the remote registry is not ported yet). ``--device`` picks
 where the models run: the CUDA card by default (an error if there is none),
-``cpu`` only when asked for.
+``cpu`` only when asked for. A directory of cases runs pipelined (read-
+ahead, micro-batched dispatch, background export).
 """
 
 from __future__ import annotations
@@ -53,9 +54,16 @@ def _enumerate_cases(src: str) -> Iterator[Tuple[str, str]]:
 def ts2d_run(src: str, dest: str, model: Optional[str] = None,
              collapse: bool = False,
              save_all: bool = False, silent: bool = False,
-             local: Optional[str] = None, device=None) -> None:
-    """Run TS2D on one image or a directory of images."""
+             local: Optional[str] = None, device=None,
+             trace: Optional[str] = None, batching: bool = True) -> None:
+    """Run TS2D on one image or a directory of images. More than one case
+    runs through :class:`~.inference.pipeline.ScanPipeline` (read-ahead,
+    up to 8 scans in flight for the micro-batcher, background export).
+    ``trace`` writes a torch.profiler trace of the run into that directory;
+    ``batching=False`` turns micro-batching off for bitwise run-to-run
+    consistency (see TS2D)."""
     from .api import TS2D
+    from .utils.trace import device_trace
 
     model = get_default_model() if model is None else model
     was_silent = is_silent()
@@ -63,17 +71,24 @@ def ts2d_run(src: str, dest: str, model: Optional[str] = None,
     try:
         bar = '#' * shutil.get_terminal_size(fallback=(120, 20)).columns
         log(f'\n{bar}\n{_CITATION}\n{bar}\n')
-        with TS2D(key=model, use_remote=False, local=local,
-                  device=device) as tool:
+        with TS2D(key=model, use_remote=False, local=local, device=device,
+                  batching=batching) as tool, device_trace(trace):
             cases = list(_enumerate_cases(src))
+            n = len(cases)
             if not cases:
                 warn(f'No supported input found in {src}')
-            for i, (name, path) in enumerate(cases):
-                log(f'[{i + 1}/{len(cases)}] Processing: {name}')
-                res = tool.predict(path, collapse=collapse)
-                res.save(dest=dest, name=name,
-                         models='all' if save_all else 'final',
-                         targets=['segmentation', 'projection'])
+            save_kwargs = dict(dest=dest,
+                               models='all' if save_all else 'final',
+                               targets=['segmentation', 'projection'])
+            if n > 1:
+                from .inference.pipeline import ScanPipeline
+                ScanPipeline(tool).run(cases, collapse=collapse,
+                                       save_kwargs=save_kwargs)
+            elif n == 1:
+                name, path = cases[0]
+                log(f'[1/1] Processing: {name}')
+                tool.predict(path, collapse=collapse).save(name=name,
+                                                           **save_kwargs)
     finally:
         log_silent(was_silent)
 
@@ -106,6 +121,13 @@ def ts2d_entry_point() -> None:
     parser.add_argument('--device', type=str, default=None,
                         help="Where the models run: 'cuda' (the default; an "
                              "error without a CUDA device) or 'cpu'.")
+    parser.add_argument('--trace', type=str, default=None,
+                        help='Write a torch.profiler trace of the run to '
+                             'this directory (open it in Perfetto).')
+    parser.add_argument('--no-batching', action='store_true',
+                        help='Disable micro-batched dispatch (bitwise '
+                             'run-to-run consistency; lower directory-mode '
+                             'throughput).')
     from . import __version__
     parser.add_argument('--version', action='version',
                         version=f'ts2d (PyTorch/CUDA) {__version__}')
@@ -114,4 +136,5 @@ def ts2d_entry_point() -> None:
     ts2d_run(src=args.src, dest=args.dest, model=args.model,
              collapse=args.collapse,
              save_all=args.save_all, silent=args.silent, local=args.local,
-             device=args.device)
+             device=args.device, trace=args.trace,
+             batching=not args.no_batching)

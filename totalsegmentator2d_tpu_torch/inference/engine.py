@@ -52,7 +52,8 @@ class InferenceEngine(ScanEngine):
                             for m in self.models]).mean(dim=0)
 
     def _decide(self, logits: torch.Tensor) -> torch.Tensor:
-        """(L, H, W) -> (H, W, L) multilabel one-hot or (H, W) labels."""
+        """(*lead, L, H, W) -> (*lead, H, W, L) multilabel one-hot or
+        (*lead, H, W) labels."""
         if self.spec.multilabel:
-            return (torch.sigmoid(logits) > 0.5).to(torch.uint8).permute(1, 2, 0)
-        return torch.argmax(logits, dim=0).to(torch.uint8)
+            return (torch.sigmoid(logits) > 0.5).to(torch.uint8).movedim(-3, -1)
+        return torch.argmax(logits, dim=-3).to(torch.uint8)

@@ -9,12 +9,28 @@ the fold mean per group, then a per-group sigmoid>0.5 (or argmax), the
 fast one, whose U-Nets run bf16 (models/unet.py) with every parameter
 rounded to bf16 first, as the reference's fast ensemble stores them
 (``ensemble_engine.py:438-443`` there).
+
+Serving, as in the reference package:
+
+- the **int16 wire**: exactly-integral channels (a CT's MIP) upload as
+  int16 and are cast back on the device, bit-identical
+  (:func:`wire_detect`, :func:`_wire_pack`, ``program._wire_restore``);
+- the **compact mask wire**: the program returns the packed masks'
+  nonzero 8-byte tiles compacted to a prefix plus an occupancy bitmap
+  (:func:`_compact_pack`); the host fetches the bitmap and only the prefix
+  its count needs (:func:`fetch_compact`), bit-identical to the plain wire;
+- **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
+  :meth:`~EnsembleEngine.finish_array`) and **micro-batching**
+  (``auto_batch=N``: concurrent requests of one shape coalesce into the
+  batched program, inference/batching.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import os
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +39,9 @@ import torch.nn.functional as F
 from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
-from .program import ScanEngine
+from ..ops.normalize import nonzero_norm_mask
+from ..utils.logging import log
+from .program import ScanEngine, ready_event, to_host
 
 
 def pad_head(sd: Dict[str, torch.Tensor], n_labels: int,
@@ -62,6 +80,236 @@ def unpack_bits(packed: np.ndarray, n_labels: int) -> np.ndarray:
     return bits[..., :n_labels]
 
 
+# -- compact mask wire: ship only the nonzero tiles of the packed masks ------
+#
+# Per-label foreground is a few percent of a projection on real anatomy, so
+# most packed bytes are zero. The program cuts the packed bytes, plane by
+# plane (a label byte-plane's support is spatially local, so its tiles go
+# zero together), into tiles of _COMPACT_TILE bytes and moves the occupied
+# ones to a dense prefix by cumsum positions (no sort, no host sync); the
+# host fetches the occupancy bitmap, whose popcount sizes a bucketed prefix
+# of the buffer, and only that prefix. The bucket the last result of the
+# same program needed is fetched speculatively beside the bitmap.
+
+_COMPACT_TILE = 8
+# the host rebuild moves each 8-byte tile as one uint64: a 1-D boolean
+# scatter of words is several times faster than one of 8-byte rows
+_TILE_WORD = np.uint64
+
+
+def _compact_meta(h: int, w: int, n_bytes: int) -> dict:
+    total = h * w * n_bytes
+    return {'shape': (h, w, n_bytes), 'T': -(-total // _COMPACT_TILE)}
+
+
+def prefix_buckets(T: int) -> Tuple[int, ...]:
+    """Fetchable prefix lengths (occupied-tile counts round up to one of
+    these): fixed fractions of the tile count."""
+    return tuple(sorted({max(1, -(-T // 16)), -(-T // 8), -(-T // 4),
+                         -(-T // 2), T + 1}))
+
+
+def pick_prefix(count: int, T: int) -> int:
+    for b in prefix_buckets(T):
+        if b >= count:
+            return b
+    return T + 1  # pragma: no cover - the last bucket always covers
+
+
+def _compact_pack(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device side: (..., H, W, nB) bit-packed masks -> (buf, occ): ``buf``
+    (..., T+1, _COMPACT_TILE) uint8 with the occupied plane-major tiles in
+    a dense prefix and every other row zero, ``occ`` the packed tile
+    occupancy bitmap (..., ceil(T/8)).
+
+    An index scatter, then a row gather: every unoccupied tile scatters its
+    index to the trash row T, so which one lands there depends on the order
+    of a duplicate-index scatter (unspecified on a card), but every
+    candidate is an all-zero tile (occupied means nonzero), so the trash
+    row, and the whole buffer, are the same whatever the order."""
+    lead = tuple(packed.shape[:-3])
+    flat = packed.movedim(-1, -3).reshape(lead + (-1,))
+    pad = (-flat.shape[-1]) % _COMPACT_TILE
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    tiles = flat.reshape(lead + (-1, _COMPACT_TILE))
+    T = tiles.shape[-2]
+    occ = (tiles != 0).any(dim=-1)
+    pos = torch.cumsum(occ, dim=-1) - 1
+    idx = torch.where(occ, pos, T)
+    src = torch.full(lead + (T + 1,), T, dtype=torch.long,
+                     device=packed.device)
+    src.scatter_(-1, idx, torch.arange(T, device=packed.device)
+                 .expand(lead + (T,)))
+    tiles_p = torch.cat([tiles, tiles.new_zeros(lead + (1, _COMPACT_TILE))],
+                        dim=-2)
+    buf = torch.gather(tiles_p, -2,
+                       src[..., None].expand(lead + (T + 1, _COMPACT_TILE)))
+    return buf, _pack_bits(occ.to(torch.uint8))
+
+
+def occupied_count(occ_packed: np.ndarray, T: int) -> int:
+    """Occupied-tile count from the fetched bitmap (host side)."""
+    bits = np.unpackbits(np.ascontiguousarray(occ_packed).reshape(-1),
+                         bitorder='little')
+    return int(bits[:T].sum())
+
+
+def uncompact(prefix: np.ndarray, occ_packed: np.ndarray, count: int,
+              shape: Tuple[int, int, int]) -> np.ndarray:
+    """Host side: rebuild the (H, W, nB) packed-mask array from a fetched
+    buffer prefix (length >= count) and the occupancy bitmap. Bit-identical
+    to the plain wire."""
+    h, w, n_bytes = shape
+    total = h * w * n_bytes
+    T = -(-total // _COMPACT_TILE)
+    occ = np.unpackbits(np.ascontiguousarray(occ_packed).reshape(-1),
+                        bitorder='little')[:T].astype(bool)
+    out = np.zeros(T, _TILE_WORD)
+    out[occ] = _words(prefix[:count])
+    planes = out.view(np.uint8)[:total].reshape(n_bytes, h, w)
+    return np.ascontiguousarray(planes.transpose(1, 2, 0))
+
+
+def _words(tiles: np.ndarray) -> np.ndarray:
+    """(n, _COMPACT_TILE) uint8 tiles as n tile words."""
+    return np.ascontiguousarray(tiles).view(_TILE_WORD).reshape(-1)
+
+
+_fetch_pools: Dict[str, object] = {}
+_fetch_pool_lock = threading.Lock()
+
+
+def _fetch_pool(kind: str, workers: int):
+    """Shared thread pools for result downloads: the fetch paths run once
+    per scan in the serving loop. 'slab' tasks never submit into a pool
+    and 'spec' tasks only into 'slab', so they cannot deadlock."""
+    with _fetch_pool_lock:
+        pool = _fetch_pools.get(kind)
+        if pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(
+                workers, thread_name_prefix=f'ts2d-fetch-{kind}')
+            _fetch_pools[kind] = pool
+        return pool
+
+
+def fetch_split(dev, min_bytes: int = 1_000_000, streams: int = 1,
+                ready=None) -> np.ndarray:
+    """Fetch a device array as ``streams`` concurrent contiguous slabs
+    along axis 0, each on its own copy stream; the concatenated slabs are
+    bit-identical to the whole array. Arrays under ``min_bytes``, or with
+    fewer than two rows, take one copy. ``ready``: the event after the
+    program (:func:`~.program.ready_event`). One stream by default: the
+    reference's 4 slabs aggregate a remote tunnel's streams, but a card on
+    PCIe fills the link with one copy, and 4 slabs measured ~10x slower
+    (PERF.md)."""
+    n = dev.shape[0] if getattr(dev, 'ndim', 0) >= 1 else 0
+    if n >= 2 and streams > 1 and dev.nbytes >= min_bytes:
+        k = min(streams, n)
+        bounds = [n * i // k for i in range(k + 1)]
+        slabs = [(dev[bounds[i]:bounds[i + 1]], i) for i in range(k)]
+        # 8 workers: two fetch_split calls can run at once (a speculative
+        # prefix beside another program's result)
+        parts = list(_fetch_pool('slab', 8).map(
+            lambda s: to_host(s[0], ready, s[1]), slabs))
+        return np.concatenate(parts)
+    return to_host(dev, ready)
+
+
+def _fetch_speculative(occ, spec_thunk, ready=None):
+    """Fetch the occupancy bitmap, with an optional speculative prefix fetch
+    running beside it. Returns ``(occ_np, speculative_result_or_None)``."""
+    if spec_thunk is None:
+        return to_host(occ, ready), None
+    spec = _fetch_pool('spec', 2).submit(spec_thunk)
+    occ_np = to_host(occ, ready)
+    return occ_np, spec.result()
+
+
+def fetch_compact(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
+    """Fetch a compacted solo result: the occupancy bitmap, plus only the
+    bucketed prefix its count needs. The bucket the last solo result of
+    this program needed (``cmeta['hint_solo']``; the batched fetch keeps
+    its own ``hint_batch``) is fetched beside the bitmap; when it does not
+    cover the new count, the covering bucket is fetched whole. Always
+    bit-identical: :func:`uncompact` reads exactly ``prefix[:count]``."""
+    buf, occ = dev_pair
+    T = cmeta['T']
+    hint = cmeta.get('hint_solo')
+    occ_np, prefix = _fetch_speculative(
+        occ, (lambda: fetch_split(buf[:hint], ready=ready)) if hint else None,
+        ready)
+    count = occupied_count(occ_np, T)
+    k = pick_prefix(count, T)
+    if prefix is None or count > hint:
+        prefix = fetch_split(buf[:k], ready=ready)
+    cmeta['hint_solo'] = k
+    return uncompact(prefix, occ_np, count, cmeta['shape'])
+
+
+def fetch_compact_batch(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
+    """Fetch a batch of compacted results ((B, T+1, tile) buffer, (B, occB)
+    bitmaps): one prefix slab sized by the largest per-scan count, then one
+    vectorized scatter per batch. Speculation as in :func:`fetch_compact`
+    (own ``hint_batch`` slot). Returns the plain packed (B, H, W, nB)
+    array, bit-identical to the plain wire."""
+    buf, occ = dev_pair
+    T = cmeta['T']
+    h, w, n_bytes = cmeta['shape']
+    hint = cmeta.get('hint_batch')
+    occ_np, slab = _fetch_speculative(
+        occ, (lambda: fetch_split(buf[:, :hint], ready=ready)) if hint
+        else None, ready)
+    bits = np.unpackbits(np.ascontiguousarray(occ_np), axis=-1,
+                         bitorder='little')[:, :T].astype(bool)
+    counts = bits.sum(axis=-1)
+    kmax = pick_prefix(int(counts.max()), T)
+    if slab is None or int(counts.max()) > hint:
+        slab = fetch_split(buf[:, :kmax], ready=ready)
+    cmeta['hint_batch'] = kmax
+    B = slab.shape[0]
+    out = np.zeros((B, T), _TILE_WORD)
+    out[bits] = _words(np.concatenate([slab[i, :counts[i]] for i in range(B)]))
+    total = h * w * n_bytes
+    planes = out.view(np.uint8)[:, :total].reshape(B, n_bytes, h, w)
+    return np.ascontiguousarray(planes.transpose(0, 2, 3, 1))
+
+
+# -- int16 wire: exactly-integral channels upload at half width -------------
+#
+# CT MIP channels (and integer X-rays) hold exactly-integral float values,
+# which an int16 carries losslessly at half the bytes; the device casts back
+# to float before normalization, so results are bit-identical to the
+# float32 wire. The AIP (mean) channel is fractional and stays float32.
+
+
+def wire_detect(arr: np.ndarray) -> Tuple[bool, ...]:
+    """Per-channel int16 eligibility of a float (H, W, C) array: every
+    value integral and within int16 range. NaN/inf fail the equality and
+    land on the float32 wire."""
+    wire = []
+    for c in range(arr.shape[-1]):
+        ch = arr[..., c]
+        wire.append(bool(ch.size and np.all(np.trunc(ch) == ch)
+                         and ch.min() >= -32768 and ch.max() <= 32767))
+    return tuple(wire)
+
+
+def _wire_pack(arr: np.ndarray, wire) -> object:
+    """Split (..., C) float32 into the wire payload: the int16 channels
+    and the float32 channels as two arrays (int channels first). All-float
+    wires return the array unchanged; all-int wires return a 1-tuple."""
+    if wire is None or not any(wire):
+        return np.ascontiguousarray(arr, np.float32)
+    ii = [c for c, w in enumerate(wire) if w]
+    ff = [c for c, w in enumerate(wire) if not w]
+    xi = np.ascontiguousarray(arr[..., ii]).astype(np.int16)
+    if not ff:
+        return (xi,)
+    return (xi, np.ascontiguousarray(arr[..., ff], np.float32))
+
+
 class EnsembleEngine(ScanEngine):
     """Fused multi-group multi-fold inference.
 
@@ -71,6 +319,16 @@ class EnsembleEngine(ScanEngine):
     :param compute_dtype: ``None`` (exact) or ``torch.bfloat16`` (fast)
     :param device: ``None`` = the CUDA card (raises without one); pass
         ``'cpu'`` to run on the CPU
+    :param forward_batch_cap: bound on one scan's tile x TTA forward batch
+    :param auto_batch: N = concurrent :meth:`predict_array_async` requests
+        coalesce into batched programs of N scans (DynamicBatcher, its
+        dispatcher thread stops in :meth:`close`); None = every request
+        runs the solo program on the caller's thread
+    :param compact_wire: the programs return the compacted masks and the
+        host fetches only their occupied tiles (default on; TS2D_COMPACT=0
+        or False: the plain packed array). Bit-identical either way.
+    :param pad_quantum, tile_mesh: the reference's quantized-shape bucket
+        programs and tile-sharded program; later slices of the port
     """
 
     kind = 'ensemble'
@@ -78,11 +336,25 @@ class EnsembleEngine(ScanEngine):
     def __init__(self, specs: Sequence[ModelSpec],
                  group_fold_params: Sequence[Sequence[Dict[str, torch.Tensor]]],
                  tile_step_size: float = 0.5, use_mirroring: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None, device=None):
+                 compute_dtype: Optional[torch.dtype] = None, device=None,
+                 forward_batch_cap: int = 64,
+                 auto_batch: Optional[int] = None,
+                 compact_wire: Optional[bool] = None,
+                 pad_quantum: Optional[int] = None, tile_mesh=None):
+        if pad_quantum is not None:
+            raise NotImplementedError(
+                'pad_quantum (the quantized-shape bucket programs) is not '
+                'ported to the PyTorch package yet: it comes with the '
+                'geometry-as-data slice')
+        if tile_mesh is not None:
+            raise NotImplementedError(
+                'tile_mesh (the tile-sharded program) is not ported to the '
+                'PyTorch package yet: it comes with the parallel slice')
         if not specs:
             raise ValueError('At least one group is required')
+        self._batcher = None  # before anything can raise: close() reads it
         super().__init__(specs[0], tile_step_size, use_mirroring,
-                         compute_dtype, device)
+                         compute_dtype, device, forward_batch_cap)
         self.specs = list(specs)
         head_free = dataclasses.replace(self.spec.arch, out_channels=0)
         for s in specs[1:]:
@@ -110,6 +382,9 @@ class EnsembleEngine(ScanEngine):
         if any(len(f) != self.n_folds for f in group_fold_params):
             raise ValueError('All groups must provide the same fold count')
         self.acc_prefix = (self.n_groups, self.max_labels)
+        if compact_wire is None:
+            compact_wire = os.environ.get('TS2D_COMPACT', '1') != '0'
+        self.compact_wire = bool(compact_wire)
 
         arch = dataclasses.replace(self.spec.arch, out_channels=self.max_labels)
         self.models: List[List[UNet]] = []
@@ -121,6 +396,27 @@ class EnsembleEngine(ScanEngine):
                     sd = round_to_bf16(sd)
                 row.append(self._load_net(arch, sd))
             self.models.append(row)
+        if auto_batch is not None:
+            from .batching import DynamicBatcher
+            self._batcher = DynamicBatcher(self, max_batch=auto_batch)
+
+    def close(self) -> None:
+        """Stop the micro-batch dispatcher thread (if enabled) and release
+        the exact-numerics hold."""
+        if self._batcher is not None:
+            self._batcher.stop()
+            self._batcher = None
+        super().close()
+
+    def set_batch_linger(self, linger_ms: float) -> None:
+        """Throughput knob for the micro-batcher: hold a partial batch up to
+        ``linger_ms`` waiting for it to fill (a partial batch pads to
+        max_batch and costs a full program). 0 = dispatch at once
+        (latency first, the default)."""
+        if self._batcher is None:
+            raise RuntimeError('micro-batching is not enabled '
+                               '(construct with auto_batch=N)')
+        self._batcher.linger_ms = float(linger_ms)
 
     @property
     def total_labels(self) -> int:
@@ -138,7 +434,7 @@ class EnsembleEngine(ScanEngine):
                 out[v] = name
         return out
 
-    # -- the program ------------------------------------------------------
+    # -- the programs -----------------------------------------------------
 
     def _net(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, C, ph, pw) -> (G, B, Lp, ph, pw): every group's fold mean."""
@@ -149,11 +445,11 @@ class EnsembleEngine(ScanEngine):
         return torch.stack(outs)
 
     def _decide(self, logits: torch.Tensor) -> torch.Tensor:
-        """(G, Lp, H, W) -> (H, W, ceil(L/8)) packed per-group decisions,
-        channels last."""
+        """(G, *lead, Lp, H, W) -> (*lead, H, W, ceil(L/8)) packed
+        per-group decisions, channels last."""
         parts = []
         for g, n in enumerate(self.label_counts):
-            lg = logits[g, :n].permute(1, 2, 0)
+            lg = logits[g, ..., :n, :, :].movedim(-3, -1)
             if self.specs[g].multilabel:
                 parts.append((torch.sigmoid(lg) > 0.5).to(torch.uint8))
             else:
@@ -161,5 +457,116 @@ class EnsembleEngine(ScanEngine):
                              .to(torch.uint8)[..., 1:])
         return _pack_bits(torch.cat(parts, dim=-1))
 
+    def _pack(self, out: torch.Tensor):
+        return _compact_pack(out) if self.compact_wire else out
+
     def _finish(self, out: np.ndarray) -> np.ndarray:
         return unpack_bits(out, self.total_labels)
+
+    def _build(self, in_shape, in_spacing, wire=None, batch=None):
+        program, meta = super()._build(in_shape, in_spacing, wire, batch)
+        if self.compact_wire:
+            meta['compact'] = _compact_meta(in_shape[0], in_shape[1],
+                                            -(-self.total_labels // 8))
+        return program, meta
+
+    def _serving_program(self, in_shape, in_spacing, wire=None):
+        """The program predict_array dispatches: the exact per-shape one
+        (the reference's quantized-shape bucket program, pad_quantum, is a
+        later slice)."""
+        return self._program(in_shape, in_spacing, wire)
+
+    def _batched_program(self, batch: int, in_shape, in_spacing,
+                         has_mask: bool, wire=None):
+        """The solo program over a stacked batch of ``batch`` same-shape
+        scans (the micro-batching dispatch path): (program, meta), where
+        meta is the solo program's, shared, so the compact wire's hints
+        live in one dict."""
+        if wire is not None and not any(wire):
+            wire = None
+        key = ('batch', int(batch), tuple(in_shape),
+               tuple(round(float(s), 6) for s in in_spacing), bool(has_mask),
+               wire)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                _, meta = self._serving_program(in_shape, in_spacing, wire)
+                fn, _ = self._build(tuple(in_shape), tuple(in_spacing), wire,
+                                    batch=int(batch))
+                hit = self._cache[key] = (fn, meta)
+                log(f'prepared batched ensemble program for shape='
+                    f'{tuple(in_shape)} batch={batch}')
+        return hit
+
+    # -- host API ------------------------------------------------------------
+
+    def predict_array_async(self, arr: np.ndarray, spacing_yx: Sequence[float]):
+        """Crop (nnU-Net crop_to_nonzero) and dispatch without waiting for
+        the card; returns a handle for :meth:`finish_array`. With
+        micro-batching the request joins the dispatcher's queue; without,
+        the solo program is launched on this thread."""
+        cropped, mask, bbox = self._crop(arr)
+        # exactly-integral channels (CT MIP, integer X-rays) ride the wire
+        # as int16: half the upload bytes, bit-identical results
+        wire = wire_detect(cropped)
+        if self._batcher is not None:
+            return ('future',
+                    self._batcher.submit(cropped, mask, spacing_yx, bbox,
+                                         arr.shape[:2], wire))
+        fn, meta = self._serving_program(cropped.shape[:2], spacing_yx, wire)
+        out = fn(_wire_pack(cropped, wire), mask)
+        return (out, bbox, arr.shape[:2], meta.get('compact'),
+                ready_event(out))
+
+    def finish_array(self, handle) -> np.ndarray:
+        """Wait for a :meth:`predict_array_async` handle; returns the
+        full-size merged multilabel one-hot uint8 segmentation."""
+        if handle[0] == 'future':
+            batch_result, idx, bbox, full = handle[1].result()
+            packed = batch_result.get()
+            if idx is not None:
+                packed = packed[idx]
+            return self._place(unpack_bits(packed, self.total_labels),
+                               bbox, full)
+        out, bbox, full, cmeta, ready = handle
+        if cmeta is not None:
+            packed = fetch_compact(out, cmeta, ready)
+        else:
+            packed = to_host(out, ready)
+        return self._place(unpack_bits(packed, self.total_labels), bbox, full)
+
+    def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
+                      ) -> np.ndarray:
+        """(H, W, C) float array -> (H, W, sum(labels)) merged multilabel
+        one-hot uint8."""
+        return self.finish_array(self.predict_array_async(arr, spacing_yx))
+
+    def warmup(self, in_shape: Sequence[int],
+               in_spacing: Optional[Sequence[float]] = None,
+               wire=None) -> None:
+        """Run the serving program once on an all-zero input of this shape,
+        and the batched program too when micro-batching is on: the first
+        requests then find their programs built and the card's libraries
+        loaded. ``wire``: the input-wire variant (None = float32; a
+        per-channel bool tuple = that int16 wire, see wire_detect)."""
+        if in_spacing is None:
+            in_spacing = self.spec.preprocess.spacing
+        if wire is not None and len(wire) != self.spec.arch.in_channels:
+            raise ValueError(f'wire needs {self.spec.arch.in_channels} '
+                             f'channel flags; got {wire}')
+        in_shape = tuple(in_shape)
+        dummy = np.zeros(in_shape + (self.spec.arch.in_channels,), np.float32)
+        needs_mask = any(self.spec.preprocess.use_mask_for_norm)
+        mask = nonzero_norm_mask(dummy) if needs_mask else None
+        fn, _ = self._serving_program(in_shape, tuple(in_spacing), wire)
+        outs = [fn(_wire_pack(dummy, wire), mask)]
+        if self._batcher is not None:
+            B = self._batcher.max_batch
+            fn, _ = self._batched_program(B, in_shape, tuple(in_spacing),
+                                          needs_mask, wire)
+            stacked = np.stack([dummy] * B)
+            outs.append(fn(_wire_pack(stacked, wire),
+                           None if mask is None else np.stack([mask] * B)))
+        for out in outs:
+            to_host(out[0] if isinstance(out, tuple) else out,
+                    ready_event(out))

@@ -4,7 +4,7 @@ overlap-add of tile predictions.
 The grid is computed on the host per input shape. :func:`accumulate_tiles`
 runs the tiles in the reference program's order -- chunks of tiles, mirror
 TTA batched inside a chunk, tiles added one after another -- so the fp32
-sums match it term for term.
+sums match it term for term, for one scan or for a batch of scans.
 """
 
 from __future__ import annotations
@@ -60,20 +60,25 @@ def accumulate_tiles(work: torch.Tensor, tiles: np.ndarray,
                      patch: Sequence[int], mirrors: Sequence[Tuple[int, ...]],
                      gauss: torch.Tensor, chunk_cap: int = 64) -> None:
     """Sliding-window Gaussian accumulation with tile x TTA batched forwards,
-    channels first.
+    channels first. A batch of same-shape scans (a leading axis S on
+    ``work`` and ``acc``) shares the tile grid: each forward takes the same
+    chunk of tiles from every scan, S x tc x M images.
 
-    :param work: padded input image (C, H, W)
+    :param work: padded input image (C, H, W), or a batch (S, C, H, W)
     :param tiles: (T, 2) tile origins
     :param net_batch: (B, C, ph, pw) -> (*prefix, B, L, ph, pw) logits
-    :param acc: (*prefix, L, H, W) logit accumulator, added to IN PLACE
-        (the reference builds new arrays; in place saves a copy of the
-        accumulator per tile and gives the same sums)
+    :param acc: (*prefix, L, H, W) logit accumulator, or (*prefix, S, L, H,
+        W) for a batch, added to IN PLACE (the reference builds new arrays;
+        in place saves a copy of the accumulator per tile and gives the
+        same sums)
     :param wacc: (1, H, W) Gaussian weight accumulator, added to in place
+        (the same for every scan of a batch)
     :param mirrors: TTA flip combinations over spatial axes (0=h, 1=w)
     :param gauss: (ph, pw) tile weights
-    :param chunk_cap: bound on the forward batch (tiles x mirrors)
+    :param chunk_cap: bound on one scan's forward batch (tiles x mirrors)
     """
     ph, pw = (int(p) for p in patch)
+    lead = tuple(work.shape[:-3])
     M = len(mirrors)
     T = len(tiles)
     Tc = max(1, min(T, chunk_cap // M))
@@ -84,17 +89,17 @@ def accumulate_tiles(work: torch.Tensor, tiles: np.ndarray,
 
     for start in range(0, T, Tc):
         poss = [(int(y), int(x)) for y, x in tiles[start:start + Tc]]
-        gathered = [work[:, y:y + ph, x:x + pw] for y, x in poss]
-        batch = torch.stack([torch.stack([flip(t, d) for d in dims])
-                             for t in gathered])          # (tc, M, C, ph, pw)
-        batch = batch.reshape((len(poss) * M,) + batch.shape[2:])
-        logits = net_batch(batch)                         # (*prefix, tc*M, L, ph, pw)
-        logits = logits.reshape(logits.shape[:-4] + (len(poss), M)
+        gathered = [work[..., y:y + ph, x:x + pw] for y, x in poss]
+        batch = torch.stack([torch.stack([flip(t, d) for d in dims], dim=-4)
+                             for t in gathered], dim=-5)  # (*lead, tc, M, C, ph, pw)
+        batch = batch.reshape((-1,) + batch.shape[-3:])
+        logits = net_batch(batch)                         # (*prefix, n, L, ph, pw)
+        logits = logits.reshape(logits.shape[:-4] + lead + (len(poss), M)
                                 + logits.shape[-3:])
         merged = flip(logits[..., 0, :, :, :], dims[0])
         for i in range(1, M):
             merged = merged + flip(logits[..., i, :, :, :], dims[i])
-        merged = merged / float(M) * gauss                # (*prefix, tc, L, ph, pw)
+        merged = merged / float(M) * gauss                # (*prefix, *lead, tc, L, ph, pw)
         for t, (y, x) in enumerate(poss):
             acc[..., y:y + ph, x:x + pw] += merged[..., t, :, :, :]
             wacc[..., y:y + ph, x:x + pw] += gauss

@@ -7,7 +7,8 @@ The module tree and its state-dict names follow nnU-Net's
 
 Each block is conv -> InstanceNorm -> LeakyReLU. InstanceNorm takes two-pass
 fp32 statistics with the biased variance, as torch's InstanceNorm2d with
-``track_running_stats=False``. As in the reference package, a block has a
+``track_running_stats=False`` (one-pass under :func:`stats_override`, as
+the batched serving program runs). As in the reference package, a block has a
 norm only when the architecture has norm affines (``norm_affine``); without
 them the block is conv -> LeakyReLU. Inference reads only the last (full
 resolution) segmentation head; the deep-supervision heads are kept so that
@@ -34,6 +35,9 @@ cuDNN's layout between tiles.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import os
 from typing import List, Optional
 
 import torch
@@ -65,10 +69,49 @@ def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
+_STATS_CTX = contextvars.ContextVar('ts2d_stats_override', default=None)
+
+
+@contextlib.contextmanager
+def stats_override(mode: str):
+    """The InstanceNorm statistics form ('1pass' / '2pass') for the code run
+    inside the block, in this thread or context, consulted by
+    :func:`_one_pass_stats` when ``TS2D_STATS`` is unset. The ensemble
+    engine runs its batched program under ``stats_override('1pass')``: that
+    program is already non-bitwise against the solo exact program (other
+    conv batch sizes), so it takes the one-traversal form, while the solo
+    exact program, the bitwise parity path, stays two-pass. A context
+    variable does not follow work into a new thread: the thread that runs
+    the program enters it."""
+    if mode not in ('1pass', '2pass'):
+        raise ValueError(f"stats_override must be '1pass' or '2pass', "
+                         f"got {mode!r}")
+    tok = _STATS_CTX.set(mode)
+    try:
+        yield
+    finally:
+        _STATS_CTX.reset(tok)
+
+
+def _one_pass_stats() -> bool:
+    """Whether InstanceNorm takes the one-pass variance E[x^2] - E[x]^2
+    (clamped at 0) instead of the mean of squared deviations. The
+    environment variable TS2D_STATS ('1pass' / '2pass'), when set, forces
+    one form everywhere; otherwise :func:`stats_override` decides, and the
+    default is two-pass."""
+    env = os.environ.get('TS2D_STATS')
+    if env is not None:
+        if env not in ('1pass', '2pass'):
+            raise ValueError(
+                f"TS2D_STATS must be '1pass' or '2pass', got {env!r}")
+        return env == '1pass'
+    return _STATS_CTX.get() == '1pass'
+
+
 class InstanceNorm(nn.Module):
-    """Per-sample, per-channel normalisation over H, W: two-pass fp32
-    statistics (mean, then the mean of squared deviations), biased
-    variance, then the affine."""
+    """Per-sample, per-channel normalisation over H, W: fp32 statistics with
+    the biased variance, then the affine. The variance is two-pass (mean,
+    then the mean of squared deviations) unless :func:`_one_pass_stats`."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -78,7 +121,11 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean = x.mean(dim=(2, 3), keepdim=True)
-        var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
+        if _one_pass_stats():
+            var = torch.clamp(x.square().mean(dim=(2, 3), keepdim=True)
+                              - mean.square(), min=0.0)
+        else:
+            var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight[:, None, None] + self.bias[:, None, None]
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.device import exact_numerics
+from . import count_launch
 
 
 # channel multiples the kernel takes (TMA's 16-byte strides, and whole
@@ -168,7 +169,7 @@ def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
     scale, shift when ``apply_normact``) fp32, all contiguous CUDA tensors
     on one device; raises on anything else. Channel counts the kernel does
     not take are zero-padded first (:func:`pad_channels`). Counts each
-    launch in ``fused_norm_act_conv_cuda.launches``."""
+    launch in ``fused_norm_act_conv_cuda.launches`` (:func:`count_launch`)."""
     N, C, Cout = _check_shapes(x, scale, shift, w, b, apply_normact)
     named = [('x', x, torch.bfloat16), ('w', w, torch.bfloat16),
              ('b', b, torch.float32)]
@@ -214,7 +215,7 @@ def fused_norm_act_conv_cuda(x: torch.Tensor, scale: Optional[torch.Tensor],
         what = (f'tensor-map encode failed: CUresult {err - 1000}'
                 if err >= 1000 else f'CUDA error {err}')
         raise RuntimeError(f'fused block kernel launch failed: {what}')
-    fused_norm_act_conv_cuda.launches += 1
+    count_launch(fused_norm_act_conv_cuda)
     if Cop != Cout:
         y, stats = y[..., :Cout].contiguous(), stats[..., :Cout].contiguous()
     return y, stats

@@ -36,6 +36,8 @@ import math
 import numpy as np
 import torch
 
+from . import count_launch
+
 _Z = float(np.sqrt(3.0) - 2.0)
 _GAIN = (1.0 - _Z) * (1.0 - 1.0 / _Z)
 # taps of the causal-init series: |z|^HORIZON <= 1e-10
@@ -178,7 +180,8 @@ def _kernel():
 
 def bspline_prefilter_cuda(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Launch the CUDA kernel on a contiguous float32 CUDA tensor, on the
-    current stream. Counts each launch in ``bspline_prefilter_cuda.launches``."""
+    current stream. Counts each launch in ``bspline_prefilter_cuda.launches``
+    (:func:`count_launch`)."""
     axis = _check(x, axis)
     if x.device.type != 'cuda':
         raise ValueError(f'the CUDA prefilter needs a CUDA tensor, got '
@@ -199,7 +202,7 @@ def bspline_prefilter_cuda(x: torch.Tensor, axis: int) -> torch.Tensor:
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f'prefilter kernel launch failed: CUDA error {err}')
-    bspline_prefilter_cuda.launches += 1
+    count_launch(bspline_prefilter_cuda)
     return y
 
 

@@ -3,7 +3,8 @@
 from __future__ import annotations
 
 import contextlib
-from typing import Union
+import threading
+from typing import Callable, Union
 
 import torch
 
@@ -25,17 +26,67 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return device
 
 
+# The flags below are process-wide, not per thread. Every user holds them
+# through one counter: the first holder saves the caller's settings and
+# sets the exact ones, the last one out restores them, so a thread that
+# leaves never turns TF32 back on under another thread's exact program.
+_exact_lock = threading.Lock()
+_exact_holders = 0
+_exact_saved: tuple = ()
+
+
+def _acquire_exact() -> None:
+    global _exact_holders, _exact_saved
+    with _exact_lock:
+        if _exact_holders == 0:
+            cudnn = torch.backends.cudnn
+            _exact_saved = (torch.backends.cuda.matmul.allow_tf32,
+                            cudnn.enabled, cudnn.allow_tf32, cudnn.benchmark,
+                            cudnn.deterministic)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            cudnn.enabled, cudnn.allow_tf32 = True, False
+            cudnn.benchmark, cudnn.deterministic = False, True
+        _exact_holders += 1
+
+
+def _release_exact() -> None:
+    global _exact_holders
+    with _exact_lock:
+        _exact_holders -= 1
+        if _exact_holders == 0:
+            cudnn = torch.backends.cudnn
+            (torch.backends.cuda.matmul.allow_tf32, cudnn.enabled,
+             cudnn.allow_tf32, cudnn.benchmark,
+             cudnn.deterministic) = _exact_saved
+
+
 @contextlib.contextmanager
 def exact_numerics():
     """fp32 everywhere, as the reference's exact program: cuDNN convs
     without TF32 (their default on Hopper is TF32, about three decimal
     digits) and with a fixed, batch-independent algorithm choice; cuBLAS
-    matmuls without TF32. Restores the caller's settings on exit."""
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmuls without TF32. The caller's settings come back when the last
+    holder, in any thread, leaves (see :func:`hold_exact_numerics`)."""
+    _acquire_exact()
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
-                                        benchmark=False, deterministic=True):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        _release_exact()
+
+
+def hold_exact_numerics() -> Callable[[], None]:
+    """Take the exact settings until the returned release is called (it
+    may be called more than once; only the first call releases). A CUDA
+    engine holds them for as long as it lives, so its programs never
+    change process-wide flags per call."""
+    _acquire_exact()
+    lock, released = threading.Lock(), [False]
+
+    def release() -> None:
+        with lock:
+            if released[0]:
+                return
+            released[0] = True
+        _release_exact()
+
+    return release
