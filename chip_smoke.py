@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    each kernel's bound at those shapes. The prefilter kernel must equal its
    chunked plain version bit for bit and agree with the sequential one
    (rtol 1e-5 / atol 1e-6), the reference formula and scipy; it is timed
-   at the main path's pair of launches and at the batch-8 pair, beside two
+   at the main path's pair of launches, at the batch-8 pair and at the
+   bucket program's canvas, (448, 512, 2) and its batch-8 stack, beside two
    empty launches (the launch floor). The fused block is checked and timed
    at the 11 flagship shapes at N = 16 (the main path's forward batch) and
    N = 128 (the batched serving program's: 8 scans), per scan and per
@@ -49,9 +50,29 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    slabs; (c) the HTTP server around the fast set: 8 concurrent POSTs of
    the uncompressed phantom NRRD, each response >= 0.99 against the solo
    result, ``/metrics`` with no errors and coalesced scans.
-7. One JSON line with every kernel (the batch-8 figures and launches per
-   batch beside the main path's), then the card line, then the device
-   line.
+7. The geometry-as-data paths at full width, at 'exact' and 'fast', on
+   phase 6's phantoms cropped in z and x to sizes that all ride one
+   ``pad_quantum=64`` bucket, (448, 512): (a) the solo bucket program on
+   three crop sizes (one cached program; launches per scan, prefilter 2
+   and fused block 80 fast / 0 exact; masks against the exact per-shape
+   program >= 0.995 exact, >= 0.99 fast; blocking s/scan, median of 5);
+   (b) 8 crops of 8 sizes in one 8-scan batched bucket program (launches,
+   each scan against its solo bucket result >= 0.999 exact, >= 0.99 fast,
+   s per batch, peak memory); (c) the volume program against the host
+   projection + ``predict_array`` on one engine (equal projections, masks
+   >= 0.9999; blocking s/scan of each path, median of 5, the volume's
+   upload and the host projection beside them); (d) ``predict_cohort`` of
+   the 8 phantoms against ``predict_volume`` per scan (>= 0.9999 exact,
+   >= 0.999 fast) and ``predict_cohort_mixed`` of the 8 crops in one padded
+   program ('pad'), against the plain version of its semantics (the host
+   projection centred in the bucket through the solo masked program, the
+   same bars), and against 'exact' (printed: the resample and tile grids
+   see the padded extent), s per scan of each; 'pad' against 'exact'
+   >= 0.99 at 8 smaller crops at plan spacing, which one tile covers at the
+   same place in both modes.
+8. One JSON line with every kernel (the batch-8 and bucket figures and
+   launches per batch and per bucket scan beside the main path's), then the
+   card line, then the device line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package.
@@ -238,6 +259,12 @@ def check_prefilter():
     compare(compare(x, 0), 1)
     xb = torch.randn((8, 400, 512, 2), generator=gen).cuda()
     compare(compare(xb, 1), 2)
+    # the bucket program's mirror-extended canvas (phase 7), solo along
+    # axes 0 and 1, and the batched bucket program's stack along 1 and 2
+    xk = torch.randn(BUCKET + (2,), generator=gen).cuda()
+    compare(compare(xk, 0), 1)
+    xkb = torch.randn((8,) + BUCKET + (2,), generator=gen).cuda()
+    compare(compare(xkb, 1), 2)
     for shape, axis in PREFILTER_EDGES:
         # the float64 reference loop is slow at 20000 samples: the plain
         # versions hold that one
@@ -252,7 +279,7 @@ def check_prefilter():
     # library yardstick: the dense n x n prefilter matrix (the filter of the
     # identity) applied by one batched matmul per axis, fp32 without TF32
     mats = {n: PF.bspline_prefilter_plain(torch.eye(n, device='cuda'), 0)
-            for n in (400, 512)}
+            for n in (400, 448, 512)}
 
     def library():
         a = torch.matmul(mats[400], x.view(1, 400, 1024))
@@ -261,6 +288,14 @@ def check_prefilter():
     def library_b8():
         a = torch.matmul(mats[400], xb.view(8, 400, 1024))
         return torch.matmul(mats[512], a.view(3200, 512, 2)).view(xb.shape)
+
+    def library_bucket():
+        a = torch.matmul(mats[448], xk.view(1, 448, 1024))
+        return torch.matmul(mats[512], a.view(448, 512, 2))
+
+    def library_bucket_b8():
+        a = torch.matmul(mats[448], xkb.view(8, 448, 1024))
+        return torch.matmul(mats[512], a.view(3584, 512, 2)).view(xkb.shape)
 
     def empty_pair():  # the launch floor: two empty kernels
         torch.cuda._sleep(0)
@@ -273,10 +308,19 @@ def check_prefilter():
         torch.testing.assert_close(library_b8(),
                                    pair(xb, (1, 2), PF.prefilter_axis)(),
                                    rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(library_bucket(),
+                                   pair(xk, (0, 1), PF.prefilter_axis)(),
+                                   rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(library_bucket_b8(),
+                                   pair(xkb, (1, 2), PF.prefilter_axis)(),
+                                   rtol=1e-4, atol=1e-5)
         floor_ms, floor_dev = cuda_ms(empty_pair, 200), device_ms(empty_pair, 50)
         for name, t, axes, lib, passes in (
                 ('main', x, (0, 1), library, ((400, 1024), (512, 800))),
-                ('batch8', xb, (1, 2), library_b8, ((400, 8192), (512, 6400)))):
+                ('batch8', xb, (1, 2), library_b8, ((400, 8192), (512, 6400))),
+                ('bucket', xk, (0, 1), library_bucket, ((448, 1024), (512, 896))),
+                ('bucket_batch8', xkb, (1, 2), library_bucket_b8,
+                 ((448, 8192), (512, 7168)))):
             kernel = pair(t, axes, PF.bspline_prefilter_cuda)
             bound, by = prefilter_bound_ms(passes)
             res[name] = {'ms': cuda_ms(kernel, 200),
@@ -288,8 +332,10 @@ def check_prefilter():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for name, r in res.items():
-        where = ('(400, 512, 2) axes 0, 1' if name == 'main'
-                 else '(8, 400, 512, 2) axes 1, 2')
+        where = {'main': '(400, 512, 2) axes 0, 1',
+                 'batch8': '(8, 400, 512, 2) axes 1, 2',
+                 'bucket': '(448, 512, 2) axes 0, 1',
+                 'bucket_batch8': '(8, 448, 512, 2) axes 1, 2'}[name]
         print(f'prefilter {name} pair {where}: kernel {r["ms"]:.4f} ms eager, {r["device_ms"]:.4f} ms device '
               f'({r["bound_ms"] / r["device_ms"]:.1%} of bound); plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
@@ -305,8 +351,10 @@ def check_prefilter():
             'launch_floor_eager_ms': floor_ms, 'plain_ms': main['plain_ms'],
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
             'library_ms': main['library_ms'],
-            'batch8': {k: res['batch8'][k] for k in
-                       ('ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms')}}
+            **{name: {k: res[name][k] for k in
+                      ('ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms',
+                       'bound_by')}
+               for name in ('batch8', 'bucket', 'bucket_batch8')}}
 
 
 def fused_launches(arch, in_channels=2):
@@ -796,6 +844,17 @@ def per_model_path():
 # -- 6. serving at full width -------------------------------------------------
 
 SPACING_YX = (1.25, 0.78)   # the phantom's projection, array order (y, x)
+MODES = ('max', 'mean')
+# phase 7: crops (z, x) of the (400, 512) phantom projections and volumes,
+# all in one bucket at pad_quantum 64
+PQ = 64
+BUCKET = (448, 512)
+CROPS = [(400, 512), (396, 505), (392, 498), (389, 490), (387, 480),
+         (386, 470), (385, 460), (393, 452)]
+# crops that ride the (256, 256) bucket: at plan spacing one 256^2 tile
+# covers each of them in both cohort modes, at the same centred place
+SMALL_CROPS = [(256, 256), (250, 240), (240, 230), (230, 220), (220, 210),
+               (210, 200), (200, 196), (196, 193)]
 
 
 def phantoms(first, seeds):
@@ -1024,6 +1083,241 @@ def serving(db, first, fused_per_scan):
                 serving_http(tool, first, solo_seg)
         gc.collect()
         torch.cuda.empty_cache()
+    return launches['fast'], scans, arrs
+
+
+# -- 7. the geometry-as-data paths ---------------------------------------------
+
+def median_s(fn, n=5):
+    """(median seconds of n blocking calls of fn, the runs)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), [round(t, 4) for t in times]
+
+
+def agreement(a, b):
+    return float((a == b).mean())
+
+
+def bucket_solo(qe, xe, arrs, precision, fused_per_scan):
+    """7a: three crop sizes through the solo bucket program."""
+    fast = precision == 'fast'
+    phase(f'bucket ({precision}): solo bucket program, pad_quantum {PQ}')
+    expect = {'bspline_prefilter': 2,
+              'fused_norm_act_conv': fused_per_scan if fast else 0}
+    bar = 0.99 if fast else 0.995
+    crops = [arrs[i][:z, :x] for i, (z, x) in enumerate(CROPS[:3])]
+    agree = []
+    for c in crops:
+        reset_launches()
+        out = qe.predict_array(c, SPACING_YX)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != expect:
+            raise SystemExit(f'bucket launches per scan {launches}, expected '
+                             f'{expect}')
+        if (out.shape != c.shape[:2] + (qe.total_labels,)
+                or not 0 < out.mean() < 1):
+            raise SystemExit(f'unexpected bucket result {out.shape}')
+        agree.append(agreement(out, xe.predict_array(c, SPACING_YX)))
+    keys = [k for k in qe._cache if k[0] == 'bucket']
+    print(f'crops {[c.shape[:2] for c in crops]}: bucket programs {keys}; '
+          f'launches per scan {launches}; agreement with the exact programs '
+          f'{[round(a, 6) for a in agree]}')
+    if len(keys) != 1 or keys[0][1] != BUCKET:
+        raise SystemExit(f'the crops did not share one {BUCKET} program')
+    if min(agree) < bar:
+        raise SystemExit(f'bucket/exact mask agreement {min(agree)} < {bar}')
+    bucket_s, runs = median_s(lambda: qe.predict_array(crops[0], SPACING_YX))
+    exact_s, eruns = median_s(lambda: xe.predict_array(crops[0], SPACING_YX))
+    print(f'blocking s/scan ({precision}, crop {crops[0].shape[:2]}): bucket '
+          f'{bucket_s:.4f} (runs {runs}), exact program {exact_s:.4f} (runs '
+          f'{eruns})')
+    return launches
+
+
+def bucket_batched(qe, be, arrs, precision, fused_per_scan):
+    """7b: 8 crops of 8 sizes through one batched bucket program."""
+    fast = precision == 'fast'
+    phase(f'bucket ({precision}): 8 sizes in one batched bucket program')
+    crops = [a[:z, :x] for a, (z, x) in zip(arrs, CROPS)]
+    refs = [qe.predict_array(c, SPACING_YX) for c in crops]
+    be.set_batch_linger(600_000.0)
+
+    def batch():
+        handles = [be.predict_array_async(c, SPACING_YX) for c in crops]
+        outs = [be.finish_array(h) for h in handles]
+        torch.cuda.synchronize()
+        return outs
+
+    expect = {'bspline_prefilter': 2,
+              'fused_norm_act_conv': fused_per_scan if fast else 0}
+    before = be._batcher.stats()
+    reset_launches()
+    outs = batch()
+    launches = read_launches()
+    after = be._batcher.stats()
+    coalesced = after['batch_scans_coalesced'] - before['batch_scans_coalesced']
+    print(f'launches per batch: {launches}; programs by occupancy '
+          f'{occupancy_delta(before, after)}, {coalesced} scans coalesced')
+    if coalesced != 8 or occupancy_delta(before, after) != [0] * 7 + [1]:
+        raise SystemExit('the 8 crops did not ride one 8-scan program')
+    if launches != expect:
+        raise SystemExit(f'bucket launches per batch {launches}, expected '
+                         f'{expect}')
+    bar = 0.99 if fast else 0.999
+    agree = [agreement(o, r) for o, r in zip(outs, refs)]
+    print(f'mask agreement batched vs solo bucket per scan: '
+          f'{[round(a, 6) for a in agree]}')
+    if min(agree) < bar:
+        raise SystemExit(f'batched/solo bucket agreement {min(agree)} < {bar}')
+    torch.cuda.reset_peak_memory_stats()
+    per_batch, runs = median_s(batch, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    be.set_batch_linger(0.0)
+    print(f'batched bucket ({precision}): {per_batch:.4f} s per batch of 8, '
+          f'{per_batch / 8:.4f} s per scan (runs {runs}); peak device memory '
+          f'{peak:.2f} GiB')
+    return launches
+
+
+def volume_vs_host(xe, vol, precision):
+    """7c: the volume program against the host projection + predict_array,
+    one engine, one phantom volume."""
+    from totalsegmentator2d_tpu_torch.inference.program import upload
+    phase(f'volume ({precision}): device projection against host '
+          f'projection')
+    reset_launches()
+    seg_v, proj_v = xe.predict_volume(vol, SPACING_YX, MODES)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    proj_h = xe._host_projection(vol, MODES)
+    seg_h = xe.predict_array(proj_h, SPACING_YX)
+    agree = agreement(seg_v, seg_h)
+    print(f'volume path: launches {launches}; projections equal: '
+          f'{np.array_equal(proj_v, proj_h)}; mask agreement with the host '
+          f'path {agree:.6f}')
+    if not np.array_equal(proj_v, proj_h):
+        raise SystemExit('device and host projections differ')
+    if agree < 0.9999:
+        raise SystemExit(f'volume/host mask agreement {agree} < 0.9999')
+    vol_s, vruns = median_s(lambda: xe.predict_volume(vol, SPACING_YX, MODES))
+    host_s, hruns = median_s(lambda: xe.predict_array(
+        xe._host_projection(vol, MODES), SPACING_YX))
+    proj_s, _ = median_s(lambda: xe._host_projection(vol, MODES))
+    up_s, _ = median_s(lambda: upload(vol, torch.device('cuda')))
+    print(f'blocking s/scan ({precision}): volume path {vol_s:.4f} (runs '
+          f'{vruns}; upload of the {vol.nbytes / 2**20:.0f} MiB '
+          f'{vol.dtype} volume {up_s * 1e3:.2f} ms); host path {host_s:.4f} '
+          f'(runs {hruns}; host projection {proj_s * 1e3:.2f} ms)')
+
+
+def cohorts(xe, vols, precision):
+    """7d: predict_cohort of the 8 phantoms against predict_volume, and
+    predict_cohort_mixed of the 8 crops, 'pad' against 'exact'."""
+    fast = precision == 'fast'
+    phase(f'cohorts ({precision}): 8 phantoms, 8 crops')
+    stack = np.stack(vols)
+    reset_launches()
+    t0 = time.perf_counter()
+    segs = xe.predict_cohort(stack, SPACING_YX, MODES)
+    cohort_s = time.perf_counter() - t0
+    launches = read_launches()
+    singles = [xe.predict_volume(v, SPACING_YX, MODES)[0] for v in vols]
+    agree = [agreement(a, b) for a, b in zip(segs, singles)]
+    bar = 0.999 if fast else 0.9999
+    print(f'predict_cohort: launches {launches}; agreement with '
+          f'predict_volume {[round(a, 6) for a in agree]}')
+    z, _, x = vols[0].shape
+    if segs.shape != (8, z, x, xe.total_labels) or min(agree) < bar:
+        raise SystemExit(f'cohort/volume agreement {min(agree)} < {bar}')
+    t0 = time.perf_counter()
+    xe.predict_cohort(stack, SPACING_YX, MODES)
+    cohort_s = min(cohort_s, time.perf_counter() - t0)
+    del stack, segs, singles
+    # 'pad' at the 8 crops: one padded program, held against the plain
+    # version of its semantics (each crop projected on the host over its
+    # true extent, centred in the bucket, through the solo masked program)
+    crops = [v[:z, :, :x] for v, (z, x) in zip(vols, CROPS)]
+    t0 = time.perf_counter()
+    pad = xe.predict_cohort_mixed(crops, SPACING_YX, MODES, bucket='pad',
+                                  pad_quantum=PQ)
+    pad_s = time.perf_counter() - t0
+    keys = [k[1] for k in xe._cache if k[0] == 'cohortpad']
+    agree = [agreement(p, pad_reference(xe, c)) for p, c in zip(pad, crops)]
+    print(f'predict_cohort_mixed pad: padded programs {keys}; agreement with '
+          f'the per-scan masked programs {[round(a, 6) for a in agree]}')
+    if keys != [(8,) + BUCKET[:1] + vols[0].shape[1:]]:
+        raise SystemExit(f'the crops did not share one padded program: {keys}')
+    if min(agree) < bar:
+        raise SystemExit(f'padded cohort/masked program agreement '
+                         f'{min(agree)} < {bar}')
+    t0 = time.perf_counter()
+    exact = xe.predict_cohort_mixed(crops, SPACING_YX, MODES)
+    exact_s = time.perf_counter() - t0
+    print(f'pad against exact at the 8 crops (the resample and tile grids '
+          f'see the padded extent): '
+          f'{[round(agreement(p, e), 6) for p, e in zip(pad, exact)]}')
+    print(f'cohorts ({precision}): predict_cohort {cohort_s / 8:.4f} s per '
+          f'scan (best of 2 runs of 8); predict_cohort_mixed of the 8 crops '
+          f'pad {pad_s / 8:.4f}, exact {exact_s / 8:.4f} s per scan')
+    # the regime of the reference's bar (tests/test_008_ensemble_engine.py:
+    # 238): no resample, and one tile covers each scan at the same centred
+    # place in both modes, so only the masked statistics differ
+    small = [v[:z, :, :x] for v, (z, x) in zip(vols, SMALL_CROPS)]
+    plan = FLAGSHIP['spacing']
+    pad = xe.predict_cohort_mixed(small, plan, MODES, bucket='pad',
+                                  pad_quantum=PQ)
+    exact = xe.predict_cohort_mixed(small, plan, MODES)
+    agree = [agreement(p, e) for p, e in zip(pad, exact)]
+    print(f'pad against exact at {len(small)} crops inside one tile, at plan '
+          f'spacing: {[round(a, 6) for a in agree]}')
+    if min(agree) < 0.99:
+        raise SystemExit(f'pad/exact cohort agreement {min(agree)} < 0.99')
+
+
+def pad_reference(xe, crop):
+    """The padded cohort's masks of one (z, y, x) volume, plainly: the host
+    projection centred in the bucket, through the solo masked program with
+    the placed valid-extent mask, the crop's window cut out."""
+    from totalsegmentator2d_tpu_torch.inference.program import ready_event
+    z, _, x = crop.shape
+    zq, xq = -(-z // PQ) * PQ, -(-x // PQ) * PQ
+    sz, sx = (zq - z) // 2, (xq - x) // 2
+    canvas = np.zeros((zq, xq, len(MODES)), np.float32)
+    canvas[sz:sz + z, sx:sx + x] = xe._host_projection(crop, MODES)
+    mask = np.zeros((zq, xq), bool)
+    mask[sz:sz + z, sx:sx + x] = True
+    fn, meta = xe._program_padded((zq, xq), SPACING_YX)
+    out = fn(canvas, mask)
+    masks = xe._fetch_masks(out, meta.get('compact'), ready_event(out))
+    return masks[sz:sz + z, sx:sx + x]
+
+
+def geometry_as_data(db, scans, arrs, fused_per_scan):
+    """Phase 7 at both precisions. Returns the fast precision's launches
+    per bucket scan and per 8-scan bucket batch."""
+    vols = [reorient(sc, 'RAI').array for sc in scans[:8]]
+    launches = {}
+    for precision in ('exact', 'fast'):
+        param = FAST if precision == 'fast' else None
+        common = dict(key='ts2d-v9-flagship', use_remote=False, local=db,
+                      param=param)
+        with TS2D(pad_quantum=PQ, batching=False, **common) as qtool, \
+                TS2D(pad_quantum=PQ, **common) as btool, \
+                TS2D(batching=False, **common) as xtool:
+            qe, be, xe = qtool._fused, btool._fused, xtool._fused
+            solo = bucket_solo(qe, xe, arrs, precision, fused_per_scan)
+            batch = bucket_batched(qe, be, arrs, precision, fused_per_scan)
+            launches[precision] = (solo, batch)
+            volume_vs_host(xe, vols[0], precision)
+            cohorts(xe, vols, precision)
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches['fast']
 
 
@@ -1046,14 +1340,22 @@ def main():
     gpu_vs_cpu('exact', 0.999)
     gpu_vs_cpu('fast', 0.99)
     per_model_path()
-    per_batch = serving(db, scan, fused_per_scan)
+    per_batch, scans, arrs = serving(db, scan, fused_per_scan)
+    per_bucket, per_bucket_batch = geometry_as_data(db, scans, arrs,
+                                                    fused_per_scan)
+    del scans, arrs
     kernels = [prefilter, fused]
     for k in kernels:
-        k['launches'] = launches[k['name']]
-        k['batch8']['launches'] = per_batch[k['name']]
-        if k['launches'] < 1 or k['batch8']['launches'] < 1:
-            raise SystemExit(f'{k["name"]} did not run on the main path or '
-                             f'the batched serving path')
+        name = k['name']
+        k['launches'] = launches[name]
+        for key, counts in (('batch8', per_batch), ('bucket', per_bucket),
+                            ('bucket_batch8', per_bucket_batch)):
+            k.setdefault(key, {})['launches'] = counts[name]
+        if min(k['launches'], k['batch8']['launches'],
+               k['bucket']['launches'],
+               k['bucket_batch8']['launches']) < 1:
+            raise SystemExit(f'{name} did not run on the main path, the '
+                             f'batched serving path or the bucket paths')
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -200,3 +200,38 @@ def test_per_model_path_matches_reference(tmp_path, variant):
         assert a.array.shape == b.array.shape and a.meta == b.meta
         assert a.is_vector == b.is_vector
     assert sorted(out.get_projection()) == sorted(ref.get_projection())
+
+
+def test_pad_quantum_predict_matches_reference(model_root):
+    """TS2D(pad_quantum=32) on the sample CT: the bucket program in both
+    packages. Measured agreement on the CPU: 1.0."""
+    path = asset_path('sample_s0521.nrrd')
+    with JaxTS2D(key=KEY, use_remote=False, local=model_root, batching=False,
+                 pad_quantum=32) as tool:
+        ref = tool.predict(path)
+    with TS2D(key=KEY, use_remote=False, local=model_root, device='cpu',
+              pad_quantum=32) as tool:
+        out = tool.predict(path)
+        assert [k for k in tool._fused._cache if k[0] == 'bucket']
+    seg, ref_seg = out.get_segmentation(), ref.get_segmentation()
+    assert seg.array.shape == ref_seg.array.shape == (133, 1, 53, 5)
+    agree = float((seg.array == ref_seg.array).mean())
+    assert agree >= 0.999, f'mask agreement {agree}'
+    assert seg.meta == ref_seg.meta and seg.spacing == ref_seg.spacing
+    with pytest.raises(ValueError, match='pad_quantum'):
+        TS2D(key=KEY, use_remote=False, local=model_root, device='cpu',
+             pad_quantum=0)
+
+
+def test_pad_quantum_per_model_fallback_warns(tmp_path, capsys):
+    """A set that does not fuse runs per-model engines, which keep the
+    exact per-shape programs: pad_quantum warns, as in the reference."""
+    build_group_set(str(tmp_path), model=KEY, spacing=(1.2, 2.0),
+                    multilabel=False)
+    with TS2D(key=KEY, use_remote=False, local=str(tmp_path), device='cpu',
+              pad_quantum=32) as tool:
+        assert tool._fused is None
+        out = tool.predict(asset_path('sample_s0521.nrrd'))
+    assert 'pad_quantum requires the fused ensemble engine' in \
+        capsys.readouterr().err
+    assert out.get_segmentation().array.shape[:3] == (133, 1, 53)

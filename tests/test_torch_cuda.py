@@ -13,7 +13,11 @@ fp32 summation orders (y rtol/atol 0.05, stats rtol 0.03 / atol 0.5, the
 tests/test_013_pallas.py bars), also at the batched program's forward
 batch (N = 128). The batched serving program must launch both kernels at
 its shapes, and 8 exact predicts on 8 threads must equal 8 sequential ones
-bit for bit (the exact-numerics flags are process-wide)."""
+bit for bit (the exact-numerics flags are process-wide). The bucket
+program (pad_quantum) runs the prefilter on its bucket canvas, solo and
+batched, and repeats bit for bit with scans of different extents in one
+batch; the volume program's projection of an int16 volume is the host's
+bit for bit."""
 
 import numpy as np
 import pytest
@@ -42,8 +46,12 @@ def rng():
 # (n = 2, 3, 9, L-1, L, L+1, H+L, 2L+H+3) at inner = 1, 2, 33 and at line
 # counts that are not multiples of a block; (3, 20000, 2) takes the global
 # path with a small inner (its (n, inner) slab exceeds shared memory)
+# the bucket program's canvas of the phantom crops at pad_quantum 64, solo
+# and as the 8-scan batch
 PREFILTER_SHAPES = [((400, 512, 2), 0), ((400, 512, 2), 1),
                     ((8, 400, 512, 2), 1), ((8, 400, 512, 2), 2),
+                    ((448, 512, 2), 0), ((448, 512, 2), 1),
+                    ((8, 448, 512, 2), 1), ((8, 448, 512, 2), 2),
                     ((2, 77), 0), ((13, 1001), 0), ((13, 1001), 1),
                     ((9, 10, 11), 2), ((5, 3, 33), 1), ((7, 9, 2), 1),
                     ((31, 45), 0), ((32, 45), 0), ((33, 1), 0),
@@ -307,5 +315,56 @@ def test_concurrent_exact_predicts_equal_sequential(cuda, rng):
         for a, b in zip(outs, seq):
             np.testing.assert_array_equal(a, b)
         assert torch.backends.cuda.matmul.allow_tf32 is False  # still held
+    finally:
+        engine.close()
+
+
+def test_batched_bucket_program_repeats_bitwise(cuda, rng):
+    """pad_quantum=64: 8 scans of different extents in one (192, 128)
+    bucket ride one batched bucket program (the prefilter once per axis on
+    the (8, 192, 128, 2) mirror-extended canvas); two runs give the same
+    masks bit for bit, each scan agrees with its solo bucket program."""
+    sizes = [(130, 96), (140, 100), (150, 90), (160, 110), (170, 120),
+             (180, 70), (190, 125), (129, 65)]
+    scans = [(rng.standard_normal(s + (2,)) * 50 + 100).astype(np.float32)
+             for s in sizes]
+    solo = _ensemble(cuda, True, pad_quantum=64)
+    refs = [solo.predict_array(s, (1.0, 1.2)) for s in scans]
+    solo.close()
+    engine = _ensemble(cuda, True, pad_quantum=64, auto_batch=8)
+    try:
+        engine.set_batch_linger(60_000.0)
+        runs = []
+        for _ in range(2):
+            before = PF.bspline_prefilter_cuda.launches
+            handles = [engine.predict_array_async(s, (1.0, 1.2))
+                       for s in scans]
+            runs.append([engine.finish_array(h) for h in handles])
+            assert PF.bspline_prefilter_cuda.launches == before + 2
+        assert engine._batcher.stats()['batch_occupancy'][7] == 2
+    finally:
+        engine.close()
+    for a, b, ref, s in zip(runs[0], runs[1], refs, sizes):
+        np.testing.assert_array_equal(a, b)
+        assert a.shape == s + (7,)
+        assert float((a == ref).mean()) >= 0.99
+
+
+def test_volume_projection_equals_host_projection(cuda, rng):
+    """An int16 volume through the volume program: its projections (the max
+    and the exact integer mean) equal the host's bit for bit, and so do the
+    masks of the two paths."""
+    from totalsegmentator2d_tpu_torch.ops.projection import project_array_np
+    vol = np.clip(rng.standard_normal((140, 60, 110)) * 400, -1024,
+                  3071).astype(np.int16)
+    engine = _ensemble(cuda, False)
+    try:
+        seg, proj = engine.predict_volume(vol, (1.0, 1.2), ('max', 'mean'))
+        host = np.concatenate([project_array_np(vol, m, 1)
+                               for m in ('max', 'mean')],
+                              axis=1).transpose(0, 2, 1).astype(np.float32)
+        np.testing.assert_array_equal(proj, host)
+        np.testing.assert_array_equal(seg, engine.predict_array(host,
+                                                                (1.0, 1.2)))
     finally:
         engine.close()

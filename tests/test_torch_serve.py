@@ -360,9 +360,62 @@ def test_production_wire_from_channel_names():
 
 
 @pytest.mark.parametrize('argv,message', [
-    (['--pad-quantum', '32'], 'not ported'),
+    # the id is the one this case had while --pad-quantum was refused
+    pytest.param(['--pad-quantum', '0'], '--pad-quantum must be >= 1',
+                 id='argv0-not ported'),
     (['--warmup', '350by280'], 'HxW')])
 def test_main_rejects_options(argv, message, capsys):
     with pytest.raises(SystemExit):
         main(argv)
     assert message in capsys.readouterr().err
+
+
+def test_main_serves_with_pad_quantum(root, monkeypatch, tmp_path):
+    """``--pad-quantum 32 --warmup 60x50`` builds TS2D(pad_quantum=32),
+    warms the (64, 64) bucket's programs, and answers a POST with the masks
+    of the tool's own bucket program. The wait at the end of main is
+    released through the module's threading namespace."""
+    import types
+
+    import totalsegmentator2d_tpu_torch.serve as serve
+    events, servers = [], []
+
+    def event():
+        events.append(threading.Event())
+        return events[-1]
+
+    monkeypatch.setattr(serve, 'threading', types.SimpleNamespace(
+        Thread=threading.Thread, Condition=threading.Condition,
+        Lock=threading.Lock, Event=event))
+    start = serve.TS2DServer.start
+
+    def recording_start(self):
+        servers.append(self)
+        return start(self)
+
+    monkeypatch.setattr(serve.TS2DServer, 'start', recording_start)
+    runner = threading.Thread(target=main, args=([
+        '--model', KEY, '--local', root, '--device', 'cpu', '--port', '0',
+        '--pad-quantum', '32', '--warmup', '60x50'],), daemon=True)
+    runner.start()
+    deadline = time.monotonic() + 120
+    while not (servers and events) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert servers and events, 'the server did not start'
+    srv = servers[0]
+    try:
+        engine = srv.tool._fused
+        assert engine.pad_quantum == 32
+        keys = [k for k in engine._cache if k[0] in ('bucket', 'batch')]
+        assert any(k[0] == 'bucket' and k[1] == (64, 64) for k in keys)
+        assert any(k[0] == 'batch' and k[2] == (64, 64) for k in keys)
+        status, body, _ = _post(srv, _payload())
+        assert status == 200
+        seg = _seg(body, tmp_path).array
+        solo = srv.tool.predict(read_image(asset_path('sample_s0332.nrrd')))
+        np.testing.assert_array_equal(seg, solo.get_segmentation().array)
+    finally:
+        for e in events:
+            e.set()
+        runner.join(60)
+    assert not runner.is_alive()

@@ -249,7 +249,9 @@ def test_warmup_builds_the_serving_and_batched_programs(models):
         engine.warmup((90, 60), SPACING, wire=(True, False))
         keys = set(engine._cache)
         assert ((90, 60), SPACING, (True, False)) in keys
-        assert ('batch', 2, (90, 60), SPACING, False, (True, False)) in keys
+        # the last flag: no pad_quantum (the bucket programs' own key)
+        assert ('batch', 2, (90, 60), SPACING, False, (True, False),
+                False) in keys
         with pytest.raises(ValueError, match='channel flags'):
             engine.warmup((90, 60), SPACING, wire=(True,))
     finally:
@@ -260,8 +262,20 @@ def test_warmup_builds_the_serving_and_batched_programs(models):
 
 @pytest.mark.parametrize('option', ['pad_quantum', 'tile_mesh'])
 def test_later_slices_raise(models, option):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        _port(models, **{option: 32})
+    """What a later slice brings raises, naming it: tile_mesh, and the mesh
+    of the cohort programs (pad_quantum itself is ported: its engine
+    builds, and rejects a quantum below 1)."""
+    if option == 'tile_mesh':
+        with pytest.raises(NotImplementedError, match='parallel slice'):
+            _port(models, tile_mesh=32)
+        return
+    engine = _port(models, pad_quantum=32)
+    assert engine.pad_quantum == 32
+    with pytest.raises(NotImplementedError, match='parallel slice'):
+        engine.predict_cohort(np.zeros((1, 8, 4, 8), np.float32), SPACING,
+                              ('max', 'mean'), mesh=object())
+    with pytest.raises(ValueError, match='pad_quantum'):
+        _port(models, pad_quantum=0)
 
 
 def test_exact_numerics_hold_across_threads():

@@ -14,11 +14,11 @@ predict into its host half (projection, crop, dispatch) and its device
 half, and with ``batching=True`` (the default) concurrent or in-flight
 predictions coalesce into micro-batched programs of up to 8 scans
 (inference/batching.py); ScanPipeline and the HTTP server (serve.py) are
-built on these.
+built on these. With ``pad_quantum=N`` a fused set serves every crop
+through the bucket program of its shape bucket (inference/bucket.py).
 
 Not ported yet, and raising when asked for: the remote model registry
-(``use_remote=True``), PNG visuals, the quantized-shape bucket programs
-(``pad_quantum``).
+(``use_remote=True``), PNG visuals.
 """
 
 from __future__ import annotations
@@ -62,12 +62,24 @@ class TS2D:
         program runs other conv batch sizes and one-pass norm statistics,
         which flips borderline sigmoid pixels, so results can depend on
         load; pass False for bitwise run-to-run consistency.
+    :param pad_quantum: quantized-shape serving: each scan's cropped
+        projection rides the shape bucket of its size rounded up to a
+        multiple of N per axis, and one bucket program serves every size
+        inside it (the scan's true extent is data: tile layout, symmetric
+        padding and resample matrices follow it), so scans of different
+        sizes share programs and micro-batches. Masks match the exact
+        programs up to borderline pixels. None (default) = the exact
+        per-shape programs. A set that does not fuse ignores it.
     """
 
     def __init__(self, key: str = 'ts2d', use_remote: bool = True,
                  local: Optional[str] = None, param: Optional[dict] = None,
-                 device=None, batching: bool = True):
+                 device=None, batching: bool = True,
+                 pad_quantum: Optional[int] = None):
         self.device = resolve_device(device)
+        if pad_quantum is not None and int(pad_quantum) < 1:
+            raise ValueError('pad_quantum must be >= 1')
+        self._pad_quantum = pad_quantum
         if use_remote:
             raise NotImplementedError(
                 'The remote model registry is not ported to the PyTorch '
@@ -131,7 +143,8 @@ class TS2D:
                     compute_dtype=ref.compute_dtype(), device=self.device,
                     # concurrent requests coalesce into one batched
                     # program; a lone request runs the solo program
-                    auto_batch=8 if self._batching else None)
+                    auto_batch=8 if self._batching else None,
+                    pad_quantum=self._pad_quantum)
             except ValueError as ex:  # preprocessing or architecture differ
                 log(f'Fused ensemble unavailable ({ex}); using per-model '
                     f'engines.')
@@ -139,6 +152,9 @@ class TS2D:
             log('Fused ensemble unavailable (models disagree on predict '
                 'settings or are not all multilabel); using per-model engines.')
         if engine is None:
+            if self._pad_quantum is not None:
+                warn('pad_quantum requires the fused ensemble engine; the '
+                     'per-model engines run the exact per-shape programs')
             for m in models:
                 m.start(self.device)
         return engine

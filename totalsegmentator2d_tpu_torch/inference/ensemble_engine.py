@@ -22,7 +22,17 @@ Serving, as in the reference package:
 - **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
   :meth:`~EnsembleEngine.finish_array`) and **micro-batching**
   (``auto_batch=N``: concurrent requests of one shape coalesce into the
-  batched program, inference/batching.py).
+  batched program, inference/batching.py);
+- **quantized-shape serving** (``pad_quantum=N``): every crop rides the
+  bucket program of its shape bucket (inference/bucket.py), so scans of
+  different sizes share a program and a micro-batch.
+
+The geometry-as-data programs beside it: the **volume program**
+(:meth:`~EnsembleEngine.predict_volume`: the (Z, Y, X) volume uploads in
+its own dtype and is projected on the card), the **cohort programs**
+(:meth:`~EnsembleEngine.predict_cohort`, same-shape volumes in one batched
+program, and :meth:`~EnsembleEngine.predict_cohort_mixed`, grouped by exact
+shape or padded into shape buckets through the masked program).
 """
 
 from __future__ import annotations
@@ -40,8 +50,11 @@ from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
 from ..ops.normalize import nonzero_norm_mask
-from ..utils.logging import log
-from .program import ScanEngine, ready_event, to_host
+from ..ops.projection import project_array, project_array_np
+from ..utils.device import exact_numerics
+from ..utils.logging import log, warn
+from .bucket import BucketProgram
+from .program import ScanEngine, ready_event, to_host, upload
 
 
 def pad_head(sd: Dict[str, torch.Tensor], n_labels: int,
@@ -310,6 +323,20 @@ def _wire_pack(arr: np.ndarray, wire) -> object:
     return (xi, np.ascontiguousarray(arr[..., ff], np.float32))
 
 
+def _nonzero_range(vol: np.ndarray, axis: int):
+    """[first, last + 1) of the slices along ``axis`` that hold a nonzero
+    voxel, or None: the volume's nonzero bounding box along that axis,
+    found from both ends inward (a CT's air is nonzero, so this reads one
+    slice per end instead of the whole volume)."""
+    n = vol.shape[axis]
+    lo = next((i for i in range(n) if np.take(vol, i, axis).any()), None)
+    if lo is None:
+        return None
+    hi = next(i for i in range(n - 1, lo - 1, -1)
+              if np.take(vol, i, axis).any())
+    return lo, hi + 1
+
+
 class EnsembleEngine(ScanEngine):
     """Fused multi-group multi-fold inference.
 
@@ -327,8 +354,12 @@ class EnsembleEngine(ScanEngine):
     :param compact_wire: the programs return the compacted masks and the
         host fetches only their occupied tiles (default on; TS2D_COMPACT=0
         or False: the plain packed array). Bit-identical either way.
-    :param pad_quantum, tile_mesh: the reference's quantized-shape bucket
-        programs and tile-sharded program; later slices of the port
+    :param pad_quantum: N = quantized-shape serving: a crop rides the
+        bucket program of its shape rounded up to a multiple of N per axis
+        (inference/bucket.py), whose masks match the exact per-shape
+        program's up to borderline pixels; None = the exact programs
+    :param tile_mesh: the reference's tile-sharded program, a later slice
+        of the port (the parallel slice); raises
     """
 
     kind = 'ensemble'
@@ -341,11 +372,8 @@ class EnsembleEngine(ScanEngine):
                  auto_batch: Optional[int] = None,
                  compact_wire: Optional[bool] = None,
                  pad_quantum: Optional[int] = None, tile_mesh=None):
-        if pad_quantum is not None:
-            raise NotImplementedError(
-                'pad_quantum (the quantized-shape bucket programs) is not '
-                'ported to the PyTorch package yet: it comes with the '
-                'geometry-as-data slice')
+        if pad_quantum is not None and int(pad_quantum) < 1:
+            raise ValueError('pad_quantum must be >= 1')
         if tile_mesh is not None:
             raise NotImplementedError(
                 'tile_mesh (the tile-sharded program) is not ported to the '
@@ -385,6 +413,7 @@ class EnsembleEngine(ScanEngine):
         if compact_wire is None:
             compact_wire = os.environ.get('TS2D_COMPACT', '1') != '0'
         self.compact_wire = bool(compact_wire)
+        self.pad_quantum = int(pad_quantum) if pad_quantum else None
 
         arch = dataclasses.replace(self.spec.arch, out_channels=self.max_labels)
         self.models: List[List[UNet]] = []
@@ -463,39 +492,89 @@ class EnsembleEngine(ScanEngine):
     def _finish(self, out: np.ndarray) -> np.ndarray:
         return unpack_bits(out, self.total_labels)
 
-    def _build(self, in_shape, in_spacing, wire=None, batch=None):
-        program, meta = super()._build(in_shape, in_spacing, wire, batch)
+    def _compact_layout(self, h: int, w: int) -> dict:
+        return _compact_meta(h, w, -(-self.total_labels // 8))
+
+    def _build(self, in_shape, in_spacing, wire=None, batch=None,
+               force_norm_mask=False):
+        program, meta = super()._build(in_shape, in_spacing, wire, batch,
+                                       force_norm_mask)
         if self.compact_wire:
-            meta['compact'] = _compact_meta(in_shape[0], in_shape[1],
-                                            -(-self.total_labels // 8))
+            meta['compact'] = self._compact_layout(in_shape[0], in_shape[1])
         return program, meta
 
+    def _build_bucket(self, bucket, in_spacing, wire=None, batch=None):
+        """The bucket program (inference/bucket.py), solo or batched."""
+        program = BucketProgram(self, bucket, in_spacing, wire, batch)
+        meta = program.meta
+        if self.compact_wire:
+            meta['compact'] = self._compact_layout(bucket[0], bucket[1])
+        return program, meta
+
+    def _program_bucket(self, bucket, in_spacing, wire=None):
+        if wire is not None and not any(wire):
+            wire = None
+        key = ('bucket', tuple(bucket),
+               tuple(round(float(s), 6) for s in in_spacing), wire)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = self._build_bucket(tuple(bucket), tuple(in_spacing),
+                                         wire)
+                self._cache[key] = hit
+                log(f'prepared bucket serving program for bucket={key[1]} '
+                    f'(q={self.pad_quantum}, <= {hit[1]["n_tiles_max"]} '
+                    f'tiles' + (f', int16 wire {wire}' if wire else '') + ')')
+        return hit
+
+    def _program_padded(self, in_shape, in_spacing, wire=None):
+        """The masked program: normalization statistics from an explicit
+        valid-extent mask instead of the whole array, for the padded
+        mixed-shape cohorts."""
+        if wire is not None and not any(wire):
+            wire = None
+        key = ('2d-masked', tuple(in_shape),
+               tuple(round(float(s), 6) for s in in_spacing), wire)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = self._build(tuple(in_shape), tuple(in_spacing), wire,
+                                  force_norm_mask=True)
+                self._cache[key] = hit
+                log(f'prepared masked ensemble program for shape={key[1]}'
+                    + (f', int16 wire {wire}' if wire else ''))
+        return hit
+
     def _serving_program(self, in_shape, in_spacing, wire=None):
-        """The program predict_array dispatches: the exact per-shape one
-        (the reference's quantized-shape bucket program, pad_quantum, is a
-        later slice)."""
+        """The program predict_array dispatches: the bucket program under
+        quantized-shape serving, the exact per-shape one otherwise."""
+        if self.pad_quantum is not None:
+            return self._program_bucket(in_shape, in_spacing, wire)
         return self._program(in_shape, in_spacing, wire)
 
     def _batched_program(self, batch: int, in_shape, in_spacing,
                          has_mask: bool, wire=None):
-        """The solo program over a stacked batch of ``batch`` same-shape
-        scans (the micro-batching dispatch path): (program, meta), where
-        meta is the solo program's, shared, so the compact wire's hints
-        live in one dict."""
+        """The serving program over a stacked batch of ``batch`` scans of
+        one (bucket) shape (the micro-batching dispatch path): (program,
+        meta), where meta is the solo program's, shared, so the compact
+        wire's hints live in one dict."""
         if wire is not None and not any(wire):
             wire = None
         key = ('batch', int(batch), tuple(in_shape),
                tuple(round(float(s), 6) for s in in_spacing), bool(has_mask),
-               wire)
+               wire, self.pad_quantum is not None)
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
                 _, meta = self._serving_program(in_shape, in_spacing, wire)
-                fn, _ = self._build(tuple(in_shape), tuple(in_spacing), wire,
-                                    batch=int(batch))
+                build = (self._build_bucket if self.pad_quantum is not None
+                         else self._build)
+                fn, _ = build(tuple(in_shape), tuple(in_spacing), wire,
+                              batch=int(batch))
                 hit = self._cache[key] = (fn, meta)
                 log(f'prepared batched ensemble program for shape='
-                    f'{tuple(in_shape)} batch={batch}')
+                    f'{tuple(in_shape)} batch={batch}'
+                    + (' (bucket)' if self.pad_quantum is not None else ''))
         return hit
 
     # -- host API ------------------------------------------------------------
@@ -504,8 +583,19 @@ class EnsembleEngine(ScanEngine):
         """Crop (nnU-Net crop_to_nonzero) and dispatch without waiting for
         the card; returns a handle for :meth:`finish_array`. With
         micro-batching the request joins the dispatcher's queue; without,
-        the solo program is launched on this thread."""
+        the solo program is launched on this thread. Under pad_quantum the
+        crop goes flush into its shape bucket with a valid-extent mask."""
         cropped, mask, bbox = self._crop(arr)
+        if self.pad_quantum is not None:
+            q = self.pad_quantum
+            h, w = cropped.shape[:2]
+            qh, qw = -(-h // q) * q, -(-w // q) * q
+            emb = np.zeros((qh, qw) + cropped.shape[2:], cropped.dtype)
+            emb[:h, :w] = cropped
+            m = np.zeros((qh, qw), bool)
+            m[:h, :w] = mask if mask is not None else True
+            cropped, mask = emb, m
+            bbox = bbox + ((0, 0, h, w),)
         # exactly-integral channels (CT MIP, integer X-rays) ride the wire
         # as int16: half the upload bytes, bit-identical results
         wire = wire_detect(cropped)
@@ -529,11 +619,16 @@ class EnsembleEngine(ScanEngine):
             return self._place(unpack_bits(packed, self.total_labels),
                                bbox, full)
         out, bbox, full, cmeta, ready = handle
+        return self._place(self._fetch_masks(out, cmeta, ready), bbox, full)
+
+    def _fetch_masks(self, out, cmeta, ready, batch=False) -> np.ndarray:
+        """A program's device masks as unpacked host masks."""
         if cmeta is not None:
-            packed = fetch_compact(out, cmeta, ready)
+            packed = (fetch_compact_batch if batch else fetch_compact)(
+                out, cmeta, ready)
         else:
             packed = to_host(out, ready)
-        return self._place(unpack_bits(packed, self.total_labels), bbox, full)
+        return unpack_bits(packed, self.total_labels)
 
     def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
                       ) -> np.ndarray:
@@ -544,29 +639,329 @@ class EnsembleEngine(ScanEngine):
     def warmup(self, in_shape: Sequence[int],
                in_spacing: Optional[Sequence[float]] = None,
                wire=None) -> None:
-        """Run the serving program once on an all-zero input of this shape,
-        and the batched program too when micro-batching is on: the first
-        requests then find their programs built and the card's libraries
-        loaded. ``wire``: the input-wire variant (None = float32; a
-        per-channel bool tuple = that int16 wire, see wire_detect)."""
+        """Run the serving program once on an all-zero input of this shape
+        (under pad_quantum: of its bucket), and the batched program too when
+        micro-batching is on: the first requests then find their programs
+        built and the card's libraries loaded. ``wire``: the input-wire
+        variant (None = float32; a per-channel bool tuple = that int16
+        wire, see wire_detect)."""
         if in_spacing is None:
             in_spacing = self.spec.preprocess.spacing
         if wire is not None and len(wire) != self.spec.arch.in_channels:
             raise ValueError(f'wire needs {self.spec.arch.in_channels} '
                              f'channel flags; got {wire}')
         in_shape = tuple(in_shape)
+        if self.pad_quantum is not None:
+            q = self.pad_quantum
+            in_shape = tuple(-(-d // q) * q for d in in_shape)
         dummy = np.zeros(in_shape + (self.spec.arch.in_channels,), np.float32)
-        needs_mask = any(self.spec.preprocess.use_mask_for_norm)
-        mask = nonzero_norm_mask(dummy) if needs_mask else None
+        if self.pad_quantum is not None:
+            mask = np.ones(in_shape, bool)
+        elif any(self.spec.preprocess.use_mask_for_norm):
+            mask = nonzero_norm_mask(dummy)
+        else:
+            mask = None
         fn, _ = self._serving_program(in_shape, tuple(in_spacing), wire)
         outs = [fn(_wire_pack(dummy, wire), mask)]
         if self._batcher is not None:
             B = self._batcher.max_batch
             fn, _ = self._batched_program(B, in_shape, tuple(in_spacing),
-                                          needs_mask, wire)
+                                          mask is not None, wire)
             stacked = np.stack([dummy] * B)
             outs.append(fn(_wire_pack(stacked, wire),
                            None if mask is None else np.stack([mask] * B)))
         for out in outs:
             to_host(out[0] if isinstance(out, tuple) else out,
                     ready_event(out))
+
+    # -- the volume program --------------------------------------------------
+
+    def _project(self, vols: torch.Tensor, modes, axis: int) -> torch.Tensor:
+        """The channel projections of device volumes along ``axis``,
+        float32 channels last."""
+        return torch.stack([project_array(vols, m, axis).squeeze(axis).float()
+                            for m in modes], dim=-1)
+
+    def _host_projection(self, vol: np.ndarray, modes) -> np.ndarray:
+        """(Z, Y, X) -> (Z, X, C) float32 on the host."""
+        return np.concatenate([project_array_np(vol, m, 1) for m in modes],
+                              axis=1).transpose(0, 2, 1).astype(np.float32)
+
+    def _build_volume(self, vol_shape: Tuple[int, int, int],
+                      spacing_yx: Tuple[float, float],
+                      modes: Tuple[str, ...]):
+        """ONE program for a (Z, Y, X) RAI volume: it uploads in its own
+        dtype, is projected along Y on the card, and the solo 2D program
+        runs on the (Z, X, C) projection. Returns (program, compact meta);
+        the program returns (masks, projection) on the device."""
+        _, meta2d = self._program(vol_shape[::2], spacing_yx)
+        if meta2d['needs_mask']:
+            raise ValueError('masked-norm plans take the host-projection path')
+        raw, dev = meta2d['raw'], self.device
+
+        def program(vol: np.ndarray):
+            with torch.inference_mode(), exact_numerics():
+                x2d = self._project(upload(vol, dev), modes, 1)
+                return self._pack(raw(x2d, None)), x2d
+
+        return program, meta2d.get('compact')
+
+    def predict_volume_async(self, vol: np.ndarray,
+                             spacing_yx: Sequence[float],
+                             modes: Sequence[str]):
+        """Dispatch a volume's prediction without waiting for the card;
+        returns a handle for :meth:`finish_volume`. The volume is cropped
+        on the host to its nonzero (z, x) bounding box before the upload:
+        for the channel modes this equals nnU-Net's crop_to_nonzero of the
+        projected image (an all-zero (z, ., x) column projects to 0 in every
+        mode), and it shrinks the transfer.
+
+        A plan with use_mask_for_norm needs the hole-filled host mask: it
+        projects on the host and runs the 2D program (predict_array)."""
+        modes = tuple(modes)
+        if any(self.spec.preprocess.use_mask_for_norm):
+            proj = self._host_projection(vol, modes)
+            return ('hostproj', self.predict_array_async(proj, spacing_yx),
+                    proj)
+        full_zx = (vol.shape[0], vol.shape[2])
+        bbox = (_nonzero_range(vol, 0), _nonzero_range(vol, 2))
+        if bbox[0] is None:  # an all-zero volume: no crop
+            bbox = ((0, vol.shape[0]), (0, vol.shape[2]))
+        (z0, z1), (x0, x1) = bbox
+        cropped = vol[z0:z1, :, x0:x1]
+        key = ('vol', cropped.shape,
+               tuple(round(float(s), 6) for s in spacing_yx), modes)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = self._build_volume(tuple(cropped.shape),
+                                         tuple(spacing_yx), modes)
+                self._cache[key] = hit
+                log(f'prepared volume program for shape={cropped.shape}')
+        fn, cmeta = hit
+        masks, proj = fn(cropped)
+        return ('device', masks, proj, bbox, full_zx, cmeta,
+                ready_event(proj))
+
+    def finish_volume(self, handle) -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for a :meth:`predict_volume_async` handle; returns (merged
+        masks (Z, X, sum L), projections (Z, X, C))."""
+        if handle[0] == 'hostproj':
+            _, inner, proj = handle
+            return self.finish_array(inner), proj
+        _, masks, proj_d, bbox, full_zx, cmeta, ready = handle
+        seg_c = self._fetch_masks(masks, cmeta, ready)
+        proj_c = to_host(proj_d, ready)
+        (z0, z1), (x0, x1) = bbox
+        if seg_c.shape[:2] == full_zx:
+            return seg_c, proj_c
+        seg = np.zeros(full_zx + seg_c.shape[2:], np.uint8)
+        seg[z0:z1, x0:x1] = seg_c
+        proj = np.zeros(full_zx + proj_c.shape[2:], proj_c.dtype)
+        proj[z0:z1, x0:x1] = proj_c
+        return seg, proj
+
+    def predict_volume(self, vol: np.ndarray, spacing_yx: Sequence[float],
+                       modes: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """A (Z, Y, X) RAI volume, projected along the coronal (Y) axis on
+        the card -> (merged multilabel masks (Z, X, sum L), projections
+        (Z, X, C))."""
+        return self.finish_volume(
+            self.predict_volume_async(vol, spacing_yx, modes))
+
+    # -- the cohort programs ---------------------------------------------------
+
+    @staticmethod
+    def _no_mesh(mesh) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                'mesh (cohort data parallelism over several cards) is not '
+                'ported to the PyTorch package yet: it comes with the '
+                'parallel slice')
+
+    def _build_cohort(self, n: int, vol_shape: Tuple[int, int, int],
+                      spacing_yx: Tuple[float, float],
+                      modes: Tuple[str, ...]):
+        """(N, Z, Y, X) same-shape volumes -> their (N, Z, X) masks in one
+        batched program. Unlike the batched serving program it keeps the
+        solo program's two-pass statistics: a scan's masks are the volume
+        program's."""
+        _, meta2d = self._program(vol_shape[::2], spacing_yx)
+        if meta2d['needs_mask']:
+            raise ValueError('masked-norm plans take the host-projection path')
+        _, bmeta = self._build(tuple(vol_shape[::2]), tuple(spacing_yx),
+                               batch=n)
+        raw, dev = bmeta['raw'], self.device
+
+        def program(vols: np.ndarray):
+            with torch.inference_mode(), exact_numerics():
+                return self._pack(raw(self._project(upload(vols, dev), modes,
+                                                    2), None))
+
+        return program, meta2d.get('compact')
+
+    def predict_cohort(self, vols: np.ndarray, spacing_yx: Sequence[float],
+                       modes: Sequence[str], mesh=None) -> np.ndarray:
+        """(N, Z, Y, X) same-shape RAI volumes -> merged multilabel masks
+        (N, Z, X, sum L) uint8 from one batched program. For volumes of
+        several shapes, :meth:`predict_cohort_mixed`. ``mesh``: the parallel
+        slice's; raises."""
+        self._no_mesh(mesh)
+        modes = tuple(modes)
+        if any(self.spec.preprocess.use_mask_for_norm):
+            # exact masked normalization needs the hole-filled host mask:
+            # project on the host and queue the 2D path (requests coalesce
+            # in the micro-batcher when it is on)
+            handles = [self.predict_array_async(
+                self._host_projection(np.ascontiguousarray(v), modes),
+                spacing_yx) for v in vols]
+            return np.stack([self.finish_array(h) for h in handles])
+        vols = np.ascontiguousarray(vols)
+        key = ('cohort', vols.shape,
+               tuple(round(float(s), 6) for s in spacing_yx), modes)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = self._build_cohort(vols.shape[0], tuple(vols.shape[1:]),
+                                         tuple(spacing_yx), modes)
+                self._cache[key] = hit
+                log(f'prepared cohort program for batch={vols.shape[0]} '
+                    f'shape={vols.shape[1:]}')
+        fn, cmeta = hit
+        out = fn(vols)
+        return self._fetch_masks(out, cmeta, ready_event(out), batch=True)
+
+    def _build_cohort_padded(self, n: int, vol_shape: Tuple[int, int, int],
+                             spacing_yx: Tuple[float, float],
+                             modes: Tuple[str, ...]):
+        """(N, Zq, Yq, Xq) zero-padded volumes and their true (z, y, x)
+        extents -> masks through the batched masked program. The padding is
+        masked out of the projections (a zero would beat a negative HU in
+        the MIP, and the AIP divides by the true y extent), each scan is
+        centred in the bucket as the exact program's symmetric pad places
+        it, and the valid extent is the normalization mask; what remains
+        is the resample and tile grids seeing the padded extent."""
+        for m in modes:
+            if m not in ('max', 'mean', 'min'):
+                raise ValueError(
+                    f"bucket='pad' supports max/mean/min projections; "
+                    f"got {m!r} (use bucket='exact')")
+        _, meta2d = self._program_padded(vol_shape[::2], spacing_yx)
+        _, bmeta = self._build(tuple(vol_shape[::2]), tuple(spacing_yx),
+                               batch=n, force_norm_mask=True)
+        raw, dev = bmeta['raw'], self.device
+        Z, Y, X = vol_shape
+
+        def program(vols: np.ndarray, exts: np.ndarray):
+            zl, yl, xl = (exts[:, k] for k in range(3))
+            shifts = [(int(a), int(b)) for a, b in zip((Z - zl) // 2,
+                                                       (X - xl) // 2)]
+            ymask = np.arange(Y)[None, :] < yl[:, None]
+            flush = np.zeros((len(exts), Z, X), bool)
+            placed = np.zeros((len(exts), Z, X), bool)
+            for i, (z, x, (sz, sx)) in enumerate(zip(zl, xl, shifts)):
+                flush[i, :z, :x] = True
+                placed[i, sz:sz + z, sx:sx + x] = True
+            with torch.inference_mode(), exact_numerics():
+                v = upload(vols, dev).float()
+                ym = upload(ymask, dev)[:, None, :, None]
+                chans = []
+                for m in modes:
+                    if m == 'max':
+                        c = torch.where(ym, v, -torch.inf).amax(dim=2)
+                    elif m == 'min':
+                        c = torch.where(ym, v, torch.inf).amin(dim=2)
+                    else:
+                        c = (torch.where(ym, v, 0.0).sum(
+                            dim=2, dtype=torch.float64)
+                            / upload(yl.astype(np.float64), dev)[:, None, None]
+                            ).float()
+                    chans.append(c)
+                x2d = torch.where(upload(flush, dev)[..., None],
+                                  torch.stack(chans, dim=-1), 0.0)
+                x2d = torch.stack([torch.roll(x2d[i], s, dims=(0, 1))
+                                   for i, s in enumerate(shifts)])
+                return self._pack(raw(x2d, upload(placed, dev)))
+
+        return program, meta2d.get('compact')
+
+    def predict_cohort_mixed(self, vols: Sequence[np.ndarray], spacing_yx,
+                             modes: Sequence[str], mesh=None,
+                             bucket: str = 'exact',
+                             pad_quantum: int = 32) -> list:
+        """Volumes of different shapes and spacings, in input order.
+
+        ``bucket='exact'`` groups scans by (shape, spacing): each group is
+        one :meth:`predict_cohort` program, and every scan's masks are its
+        solo masks. ``bucket='pad'`` pads each scan into the bucket of its
+        shape rounded up to a multiple of ``pad_quantum`` per axis, centred
+        as the exact program places it, with masked projections and
+        normalization statistics over its true extent: one program per
+        bucket, whose masks differ from exact mode where the resample and
+        tile grids see the padded extent. Masked-norm plans take 'exact'.
+
+        :param spacing_yx: one (y, x) spacing for all scans, or one per scan
+        :param mesh: the parallel slice's; raises
+        :returns: list of per-scan merged masks (Z, X, sum L)
+        """
+        self._no_mesh(mesh)
+        if bucket not in ('exact', 'pad'):
+            raise ValueError(f"bucket must be 'exact' or 'pad'; got {bucket!r}")
+        vols = list(vols)
+        n = len(vols)
+        sps = (list(spacing_yx) if not np.isscalar(spacing_yx[0])
+               else [tuple(spacing_yx)] * n)
+        if len(sps) != n:
+            raise ValueError('spacing_yx must be one spacing or one per scan')
+        if bucket == 'pad' and any(self.spec.preprocess.use_mask_for_norm):
+            warn("bucket='pad' is not available for masked-norm plans "
+                 "(exact hole-filled host masks); using exact buckets",
+                 once=True)
+            bucket = 'exact'
+        modes = tuple(modes)
+        out: list = [None] * n
+        q = 1 if bucket == 'exact' else max(1, int(pad_quantum))
+        groups: Dict[Tuple, list] = {}
+        for i, (v, sp) in enumerate(zip(vols, sps)):
+            key = (tuple(-(-d // q) * q for d in v.shape),
+                   tuple(round(float(s), 6) for s in sp))
+            groups.setdefault(key, []).append(i)
+        for (shape, sp), idxs in sorted(groups.items()):
+            if bucket == 'exact':
+                segs = self.predict_cohort(np.stack([vols[i] for i in idxs]),
+                                           sp, modes)
+                for i, seg in zip(idxs, segs):
+                    out[i] = seg
+                continue
+            dtype = np.result_type(*[vols[i].dtype for i in idxs])
+            batch = np.zeros((len(idxs),) + shape, dtype)
+            exts = np.zeros((len(idxs), 3), np.int64)
+            for j, i in enumerate(idxs):
+                z, y, x = vols[i].shape
+                batch[j, :z, :y, :x] = vols[i]
+                exts[j] = vols[i].shape
+            segs = self._predict_cohort_padded(batch, exts, sp, modes)
+            for j, i in enumerate(idxs):
+                z, _, x = vols[i].shape
+                sz, sx = (shape[0] - z) // 2, (shape[2] - x) // 2
+                out[i] = segs[j, sz:sz + z, sx:sx + x]
+        return out
+
+    def _predict_cohort_padded(self, vols: np.ndarray, exts: np.ndarray,
+                               spacing_yx, modes: Tuple[str, ...]
+                               ) -> np.ndarray:
+        """One padded bucket (N, Zq, Yq, Xq) with its true extents."""
+        key = ('cohortpad', vols.shape,
+               tuple(round(float(s), 6) for s in spacing_yx), modes)
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = self._build_cohort_padded(vols.shape[0],
+                                                tuple(vols.shape[1:]),
+                                                tuple(spacing_yx), modes)
+                self._cache[key] = hit
+                log(f'prepared padded cohort program for '
+                    f'batch={vols.shape[0]} bucket={vols.shape[1:]}')
+        fn, cmeta = hit
+        out = fn(vols, exts)
+        return self._fetch_masks(out, cmeta, ready_event(out), batch=True)

@@ -25,6 +25,7 @@ scans, per-scan overlap-add and decisions.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -231,8 +232,23 @@ class ScanEngine:
     # -- the programs -----------------------------------------------------
 
     def _build(self, in_shape: Tuple[int, int], in_spacing: Tuple[float, float],
-               wire=None, batch: Optional[int] = None):
+               wire=None, batch: Optional[int] = None,
+               force_norm_mask: bool = False):
+        """The program of one cropped shape: (program, meta). ``program``
+        takes host arrays; ``meta['raw']`` is its device part, device
+        tensors in, the decided result out (no compaction, no statistics
+        override), for the programs that compose it with more device work
+        (the volume and cohort programs).
+
+        ``force_norm_mask``: the masked program. Every channel takes the
+        z-score statistics of the mask (a scan's true extent inside a
+        padded canvas), and everything outside the mask is zero again
+        after normalization, as the exact program pads zeros after it
+        (schemes that ignore the mask, CTNormalization, shift the zeros)."""
         pre = self.spec.preprocess
+        if force_norm_mask:
+            pre = dataclasses.replace(
+                pre, use_mask_for_norm=(True,) * len(pre.use_mask_for_norm))
         patch = tuple(pre.patch_size)
         dev = self.device
 
@@ -267,6 +283,8 @@ class ScanEngine:
                 work = torch.stack([normalize_channels(
                     x[i], pre, None if nz_mask is None else nz_mask[i])
                     for i in range(batch)])
+            if force_norm_mask and nz_mask is not None:
+                work = torch.where(nz_mask[..., None], work, 0.0)
             if down_axes:
                 work = bspline_prefilter(work, [a0 + k for k in down_axes])
                 work = apply_separable(work, w_down, axes=(a0, a0 + 1))
@@ -282,7 +300,7 @@ class ScanEngine:
             logits = logits[..., pads[0][0]:pads[0][0] + rs_shape[0],
                             pads[1][0]:pads[1][0] + rs_shape[1]]
             logits = apply_separable(logits, w_up, axes=(-2, -1))
-            return self._pack(self._decide(logits))
+            return self._decide(logits)
 
         def program(payload, nz_mask: Optional[np.ndarray] = None):
             """Host payload (and mask) in, the device result out, without
@@ -291,12 +309,13 @@ class ScanEngine:
             stats = (stats_override('1pass') if batch is not None
                      else contextlib.nullcontext())
             with torch.inference_mode(), exact_numerics(), stats:
-                return device_program(upload(payload, dev),
-                                      upload(nz_mask, dev))
+                return self._pack(device_program(upload(payload, dev),
+                                                 upload(nz_mask, dev)))
 
         meta = {'rs_shape': rs_shape, 'n_tiles': len(tiles),
                 'n_mirror': len(mirrors),
-                'needs_mask': any(pre.use_mask_for_norm)}
+                'needs_mask': any(pre.use_mask_for_norm),
+                'raw': device_program}
         return program, meta
 
     def _program(self, in_shape, in_spacing, wire=None):
@@ -337,7 +356,13 @@ class ScanEngine:
         return cropped, mask, ((y0, y1), (x0, x1))
 
     def _place(self, seg_c: np.ndarray, bbox, full) -> np.ndarray:
-        """Re-embed a cropped result into the full input extent."""
+        """Re-embed a cropped result into the full input extent. A third
+        bbox entry (y, x, h, w) is the scan's window in a shape bucket
+        (pad_quantum), sliced out first."""
+        if len(bbox) == 3:
+            sy, sx, h, w = bbox[2]
+            seg_c = seg_c[sy:sy + h, sx:sx + w]
+            bbox = bbox[:2]
         (y0, y1), (x0, x1) = bbox
         if seg_c.shape[:2] == tuple(full):
             return seg_c

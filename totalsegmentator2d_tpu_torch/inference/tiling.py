@@ -10,7 +10,7 @@ sums match it term for term, for one scan or for a batch of scans.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,48 +58,80 @@ def accumulate_tiles(work: torch.Tensor, tiles: np.ndarray,
                      net_batch: Callable[[torch.Tensor], torch.Tensor],
                      acc: torch.Tensor, wacc: torch.Tensor,
                      patch: Sequence[int], mirrors: Sequence[Tuple[int, ...]],
-                     gauss: torch.Tensor, chunk_cap: int = 64) -> None:
+                     gauss: torch.Tensor, chunk_cap: int = 64,
+                     valid: Optional[torch.Tensor] = None) -> None:
     """Sliding-window Gaussian accumulation with tile x TTA batched forwards,
-    channels first. A batch of same-shape scans (a leading axis S on
-    ``work`` and ``acc``) shares the tile grid: each forward takes the same
-    chunk of tiles from every scan, S x tc x M images.
+    channels first. A batch of scans (a leading axis S on ``work`` and
+    ``acc``) either shares one tile grid, or has a grid per scan (``tiles``
+    (S, T, 2)) and a weight map per scan (``wacc`` (S, 1, H, W)): each
+    forward takes the same number of tiles from every scan, S x tc x M
+    images, so a scan with fewer tiles than another pads its grid with
+    tiles of validity 0, which run and add nothing.
 
     :param work: padded input image (C, H, W), or a batch (S, C, H, W)
-    :param tiles: (T, 2) tile origins
+    :param tiles: (T, 2) tile origins, or (S, T, 2) per scan of a batch
     :param net_batch: (B, C, ph, pw) -> (*prefix, B, L, ph, pw) logits
     :param acc: (*prefix, L, H, W) logit accumulator, or (*prefix, S, L, H,
         W) for a batch, added to IN PLACE (the reference builds new arrays;
         in place saves a copy of the accumulator per tile and gives the
         same sums)
     :param wacc: (1, H, W) Gaussian weight accumulator, added to in place
-        (the same for every scan of a batch)
+        (one for every scan of a batch that shares its grid), or (S, 1, H,
+        W) with per-scan grids
     :param mirrors: TTA flip combinations over spatial axes (0=h, 1=w)
     :param gauss: (ph, pw) tile weights
     :param chunk_cap: bound on one scan's forward batch (tiles x mirrors)
+    :param valid: (T,) or (S, T) tile weights on the device that scale the
+        Gaussian (0 disables a padding tile); None = every tile at weight 1
     """
     ph, pw = (int(p) for p in patch)
     lead = tuple(work.shape[:-3])
+    per_scan = np.ndim(tiles) == 3
     M = len(mirrors)
-    T = len(tiles)
+    T = np.shape(tiles)[-2]
     Tc = max(1, min(T, chunk_cap // M))
     dims = [tuple(a - 2 for a in m) for m in mirrors]  # h -> -2, w -> -1
 
     def flip(t, d):
         return torch.flip(t, d) if d else t
 
+    def origins(sl):
+        """[(scan or None, [(y, x), ...])] of one chunk."""
+        if not per_scan:
+            return [(None, [(int(y), int(x)) for y, x in tiles[sl]])]
+        return [(s, [(int(y), int(x)) for y, x in grid[sl]])
+                for s, grid in enumerate(tiles)]
+
     for start in range(0, T, Tc):
-        poss = [(int(y), int(x)) for y, x in tiles[start:start + Tc]]
-        gathered = [work[..., y:y + ph, x:x + pw] for y, x in poss]
-        batch = torch.stack([torch.stack([flip(t, d) for d in dims], dim=-4)
-                             for t in gathered], dim=-5)  # (*lead, tc, M, C, ph, pw)
+        sl = slice(start, start + Tc)
+        chunk = origins(sl)
+        if per_scan:  # (S, tc, C, ph, pw): each scan's own tiles
+            gathered = torch.stack([torch.stack(
+                [work[s, :, y:y + ph, x:x + pw] for y, x in poss])
+                for s, poss in chunk])
+        else:
+            gathered = torch.stack([work[..., y:y + ph, x:x + pw]
+                                    for y, x in chunk[0][1]], dim=-4)
+        batch = torch.stack([flip(gathered, d) for d in dims],
+                            dim=-4)                       # (*lead, tc, M, C, ph, pw)
+        tc = batch.shape[-5]
         batch = batch.reshape((-1,) + batch.shape[-3:])
         logits = net_batch(batch)                         # (*prefix, n, L, ph, pw)
-        logits = logits.reshape(logits.shape[:-4] + lead + (len(poss), M)
+        logits = logits.reshape(logits.shape[:-4] + lead + (tc, M)
                                 + logits.shape[-3:])
         merged = flip(logits[..., 0, :, :, :], dims[0])
         for i in range(1, M):
             merged = merged + flip(logits[..., i, :, :, :], dims[i])
-        merged = merged / float(M) * gauss                # (*prefix, *lead, tc, L, ph, pw)
-        for t, (y, x) in enumerate(poss):
-            acc[..., y:y + ph, x:x + pw] += merged[..., t, :, :, :]
-            wacc[..., y:y + ph, x:x + pw] += gauss
+        # the Gaussian, scaled per tile by its validity: (*lead, tc, 1, ph, pw)
+        g = gauss if valid is None else gauss * valid[..., sl, None, None, None]
+        merged = merged / float(M) * g                    # (*prefix, *lead, tc, L, ph, pw)
+        for s, poss in chunk:
+            for t, (y, x) in enumerate(poss):
+                if s is None:
+                    acc[..., y:y + ph, x:x + pw] += merged[..., t, :, :, :]
+                    wacc[..., y:y + ph, x:x + pw] += (
+                        gauss if valid is None else g[..., t, :, :, :])
+                else:
+                    acc[..., s, :, y:y + ph, x:x + pw] += merged[..., s, t, :, :, :]
+                    wacc[s, :, y:y + ph, x:x + pw] += (
+                        gauss if valid is None else g[s, t])

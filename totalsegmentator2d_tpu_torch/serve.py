@@ -23,6 +23,8 @@ Start:  python -m totalsegmentator2d_tpu_torch.serve --local DB
         [--model KEY] [--port 8008] [--device cuda|cpu]
         [--warmup HxW ...]   run the programs of these projection shapes
                              once before serving
+        [--pad-quantum N]    serve every crop through the bucket program
+                             of its shape bucket (multiples of N)
 
 Production knobs: ``--auth-token`` (or $TS2D_AUTH_TOKEN) requires a Bearer
 token on everything but /health and is strongly recommended for
@@ -444,15 +446,20 @@ def main(argv=None) -> None:
                              '$TS2D_AUTH_TOKEN)')
     parser.add_argument('--pad-quantum', type=int, default=None,
                         metavar='N',
-                        help='quantized-shape serving: not ported yet')
+                        help='quantized-shape serving: scans ride shape '
+                             'buckets (next multiple of N per axis, one '
+                             'bucket program each), so scans of different '
+                             'sizes share programs and micro-batches; masks '
+                             'match the exact programs up to borderline '
+                             'pixels (omit for the exact per-shape programs)')
     parser.add_argument('--warmup', type=str, nargs='*', default=(),
                         metavar='HxW',
                         help='run the fused programs of these projection '
-                             'shapes (e.g. 350x280) once before serving')
+                             'shapes (e.g. 350x280; with --pad-quantum their '
+                             'buckets) once before serving')
     args = parser.parse_args(argv)
-    if args.pad_quantum is not None:
-        parser.error('--pad-quantum (the quantized-shape bucket programs) is '
-                     'not ported to the PyTorch package yet')
+    if args.pad_quantum is not None and args.pad_quantum < 1:
+        parser.error('--pad-quantum must be >= 1')
     # every --warmup shape is checked before any program runs
     warmup_shapes = []
     for shape in args.warmup:
@@ -464,7 +471,7 @@ def main(argv=None) -> None:
 
     key = args.model or get_default_model()
     with TS2D(key=key, use_remote=False, local=args.local,
-              device=args.device) as tool:
+              device=args.device, pad_quantum=args.pad_quantum) as tool:
         fused = tool._fused
         if args.batch_linger_ms:
             if fused is not None:
@@ -491,6 +498,8 @@ def main(argv=None) -> None:
         try:
             threading.Event().wait()
         except KeyboardInterrupt:
+            pass
+        finally:
             server.stop()
 
 
