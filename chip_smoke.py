@@ -5,16 +5,18 @@
 Phases (any failure exits non-zero; the result lines print only at the end):
 
 1. Device info: the card (nvidia-smi), CUDA, nvcc; builds every kernel from
-   the sources in the checkout, all at once.
+   the sources in the checkout, all at once, and beside them the native host
+   library (csrc/ts2dio.cc, g++ and zlib).
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes, with bitwise-repeat
    checks; kernel, plain and library-yardstick times with CUDA events, and
    each kernel's bound at those shapes. The prefilter kernel must equal its
    chunked plain version bit for bit and agree with the sequential one
    (rtol 1e-5 / atol 1e-6), the reference formula and scipy; it is timed
-   at the main path's pair of launches, at the batch-8 pair and at the
-   bucket program's canvas, (448, 512, 2) and its batch-8 stack, beside two
-   empty launches (the launch floor). The fused block is checked and timed
+   at the main path's pair of launches, at the batch-8 pair, at the
+   bucket program's canvas, (448, 512, 2) and its batch-8 stack, and at the
+   visuals' resample of a (400, 512) image along axes 1 and 0 (phase 8),
+   beside two empty launches (the launch floor). The fused block is checked and timed
    at the 11 flagship shapes at N = 16 (the main path's forward batch) and
    N = 128 (the batched serving program's: 8 scans), per scan and per
    batch. Times are eager per call (CUDA events over back-to-back calls,
@@ -70,9 +72,22 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    see the padded extent), s per scan of each; 'pad' against 'exact'
    >= 0.99 at 8 smaller crops at plan spacing, which one tile covers at the
    same place in both modes.
-8. One JSON line with every kernel (the batch-8 and bucket figures and
-   launches per batch and per bucket scan beside the main path's), then the
-   card line, then the device line.
+8. IO and visuals at full width: the native host library built and loaded;
+   its one-pass MAX + MEAN host projection of the seed-7 phantom against
+   numpy's two passes (bit for bit, both timed); ``TS2D.predict`` blocking
+   at 'exact' and 'fast' with the native projection and with numpy's,
+   median of 5 each, in turns; the phantom written and read back as
+   ``.nii.gz`` and ``.mha``; ``Result.save`` of one fast result as files,
+   as visuals and as both, with the launch counts set to 0 just before the
+   'all' save and read just after (prefilter 6: the input visual and the
+   two projection visuals, two axes each), the PNGs decoded from their IDAT
+   (no PIL) and held against the same visuals rendered on the CPU (label
+   visual bit for bit, intensity visuals within one gray level and equal on
+   >= 99.9% of pixels); one HTTP POST of the phantom as ``.nii.gz``
+   answered as ``.nii.gz``, against the in-process result.
+9. One JSON line with every kernel (the batch-8, bucket and visual figures
+   and launches per batch, per bucket scan and per saved result beside the
+   main path's), then the card line, then the device line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package.
@@ -86,6 +101,7 @@ if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device available', file=sys.stderr)
     sys.exit(1)
 
+import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -127,6 +143,8 @@ GROUPS = {'cardiac': 24, 'muscles': 21, 'organs': 22, 'ribs': 24,
           'vertebrae': 26}
 # the main path's forward batch per scan: 4 tiles x 4 mirrors
 SOLO_BATCH = 16
+# the phantom's coronal projection as the visuals resample it: (z, x)
+VISUAL = (400, 512)
 # reduced architecture for the GPU-vs-CPU comparison
 SMALL = dict(n_stages=4, features=(8, 16, 32, 32), patch=(64, 64),
              spacing=(1.5, 1.5))
@@ -171,10 +189,22 @@ def device_info():
                           text=True, check=True).stdout.strip().splitlines()[-1]
     print(f'card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; '
           f'{nvcc}')
-    t0 = time.perf_counter()
-    libs = build.build()
-    print(f'built {sorted(libs)} in {time.perf_counter() - t0:.2f} s')
-    return smi
+    from concurrent.futures import ThreadPoolExecutor
+
+    def host_build():
+        t0 = time.perf_counter()
+        path = build.build_host('ts2dio')
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_build)
+        t0 = time.perf_counter()
+        libs = build.build()
+        print(f'built {sorted(libs)} in {time.perf_counter() - t0:.2f} s')
+        host_path, host_s = host.result()
+    print(f'built the host library {os.path.basename(host_path)} in '
+          f'{host_s:.2f} s')
+    return smi, host_s
 
 
 # -- 2. kernels against their plain versions ----------------------------------
@@ -265,6 +295,10 @@ def check_prefilter():
     compare(compare(xk, 0), 1)
     xkb = torch.randn((8,) + BUCKET + (2,), generator=gen).cuda()
     compare(compare(xkb, 1), 2)
+    # the visuals' resample (phase 8) of a (400, 512) image: along axis 1
+    # (the slab path), then axis 0 (the tile path)
+    xv = torch.randn(VISUAL, generator=gen).cuda()
+    compare(compare(xv, 1), 0)
     for shape, axis in PREFILTER_EDGES:
         # the float64 reference loop is slow at 20000 samples: the plain
         # versions hold that one
@@ -297,6 +331,10 @@ def check_prefilter():
         a = torch.matmul(mats[448], xkb.view(8, 448, 1024))
         return torch.matmul(mats[512], a.view(3584, 512, 2)).view(xkb.shape)
 
+    def library_visual():
+        a = torch.matmul(xv, mats[512].T)
+        return torch.matmul(mats[400], a)
+
     def empty_pair():  # the launch floor: two empty kernels
         torch.cuda._sleep(0)
         torch.cuda._sleep(0)
@@ -314,13 +352,17 @@ def check_prefilter():
         torch.testing.assert_close(library_bucket_b8(),
                                    pair(xkb, (1, 2), PF.prefilter_axis)(),
                                    rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(library_visual(),
+                                   pair(xv, (1, 0), PF.prefilter_axis)(),
+                                   rtol=1e-4, atol=1e-5)
         floor_ms, floor_dev = cuda_ms(empty_pair, 200), device_ms(empty_pair, 50)
         for name, t, axes, lib, passes in (
                 ('main', x, (0, 1), library, ((400, 1024), (512, 800))),
                 ('batch8', xb, (1, 2), library_b8, ((400, 8192), (512, 6400))),
                 ('bucket', xk, (0, 1), library_bucket, ((448, 1024), (512, 896))),
                 ('bucket_batch8', xkb, (1, 2), library_bucket_b8,
-                 ((448, 8192), (512, 7168)))):
+                 ((448, 8192), (512, 7168))),
+                ('visual', xv, (1, 0), library_visual, ((512, 400), (400, 512)))):
             kernel = pair(t, axes, PF.bspline_prefilter_cuda)
             bound, by = prefilter_bound_ms(passes)
             res[name] = {'ms': cuda_ms(kernel, 200),
@@ -335,7 +377,8 @@ def check_prefilter():
         where = {'main': '(400, 512, 2) axes 0, 1',
                  'batch8': '(8, 400, 512, 2) axes 1, 2',
                  'bucket': '(448, 512, 2) axes 0, 1',
-                 'bucket_batch8': '(8, 448, 512, 2) axes 1, 2'}[name]
+                 'bucket_batch8': '(8, 448, 512, 2) axes 1, 2',
+                 'visual': '(400, 512) axes 1, 0'}[name]
         print(f'prefilter {name} pair {where}: kernel {r["ms"]:.4f} ms eager, {r["device_ms"]:.4f} ms device '
               f'({r["bound_ms"] / r["device_ms"]:.1%} of bound); plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
@@ -354,7 +397,7 @@ def check_prefilter():
             **{name: {k: res[name][k] for k in
                       ('ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms',
                        'bound_by')}
-               for name in ('batch8', 'bucket', 'bucket_batch8')}}
+               for name in ('batch8', 'bucket', 'bucket_batch8', 'visual')}}
 
 
 def fused_launches(arch, in_channels=2):
@@ -682,7 +725,8 @@ def main_path(db, scan, precision, fused_per_scan):
 def save_and_read_back(res):
     seg = res.get_segmentation()
     out = os.path.join(WORK, 'out')
-    res.save(out, name='scan', targets=['segmentation', 'projection'])
+    res.save(out, name='scan', targets=['segmentation', 'projection'],
+             content='file')
     files = sorted(os.listdir(out))
     if files != ['scan.seg.nrrd', 'scan_max.nrrd', 'scan_mean.nrrd']:
         raise SystemExit(f'unexpected saved files {files}')
@@ -1321,9 +1365,245 @@ def geometry_as_data(db, scans, arrs, fused_per_scan):
     return launches['fast']
 
 
+# -- 8. IO and visuals --------------------------------------------------------
+
+def png_pixels(path):
+    """The pixels of a PNG the port wrote, decoded without PIL: the
+    signature, IHDR / IDAT / IEND with their CRCs, 8-bit gray or RGB, filter
+    0 on every row."""
+    import struct
+    import zlib
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise SystemExit(f'{path}: no PNG signature')
+    pos, chunks = 8, []
+    while pos < len(data):
+        n = struct.unpack('>I', data[pos:pos + 4])[0]
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + body):
+            raise SystemExit(f'{path}: bad CRC in {kind}')
+        chunks.append((kind, body))
+        pos += 12 + n
+    if [k for k, _ in chunks] != [b'IHDR', b'IDAT', b'IEND']:
+        raise SystemExit(f'{path}: chunks {[k for k, _ in chunks]}')
+    w, h, depth, color = struct.unpack('>IIBB', chunks[0][1][:10])
+    ch = {0: 1, 2: 3}.get(color)
+    rows = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8)
+    if depth != 8 or ch is None or rows.size != h * (1 + w * ch):
+        raise SystemExit(f'{path}: depth {depth}, color {color}, {rows.size} '
+                         f'bytes for {h} x {w}')
+    rows = rows.reshape(h, 1 + w * ch)
+    if rows[:, 0].any():
+        raise SystemExit(f'{path}: a row filter other than 0')
+    return rows[:, 1:].reshape((h, w, ch) if ch == 3 else (h, w))
+
+
+class native_off:
+    """Within the block the native host library is not used (numpy and
+    Python's zlib take its place, as where it cannot be built)."""
+
+    def __enter__(self):
+        from totalsegmentator2d_tpu_torch.io import native
+        self.native, self.lib = native, native._load()
+        native._lib = None
+
+    def __exit__(self, *exc):
+        self.native._lib = self.lib
+
+
+def host_projection(scan):
+    """8: the native one-pass MAX + MEAN against numpy's two passes on the
+    phantom's RAI volume, in turns, median of 5, bit for bit."""
+    from totalsegmentator2d_tpu_torch.ops.projection import project_arrays_np
+    vol = reorient(scan, 'RAI').array
+
+    def numpy_pair():
+        return (np.max(vol, axis=1).astype(np.float32),
+                np.mean(vol, axis=1, dtype=np.float64).astype(np.float32))
+
+    def native_pair():
+        return tuple(o[:, 0] for o in project_arrays_np(vol, MODES, 1))
+
+    ref, out = numpy_pair(), native_pair()
+    if not all(np.array_equal(a, b) for a, b in zip(ref, out)):
+        raise SystemExit('native and numpy host projections differ')
+    runs = {'numpy': [], 'native': []}
+    for i in range(5):
+        for name in (('numpy', 'native') if i % 2 == 0 else ('native', 'numpy')):
+            fn = numpy_pair if name == 'numpy' else native_pair
+            t0 = time.perf_counter()
+            fn()
+            runs[name].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    print(f'host projection of the {vol.shape} {vol.dtype} volume '
+          f'({vol.nbytes / 2**20:.0f} MiB), MAX and MEAN, bit for bit equal: '
+          f'native one pass {med["native"] * 1e3:.2f} ms (runs '
+          f'{[round(t * 1e3, 2) for t in runs["native"]]}), numpy two passes '
+          f'{med["numpy"] * 1e3:.2f} ms (runs '
+          f'{[round(t * 1e3, 2) for t in runs["numpy"]]})')
+
+
+def blocking_native_vs_numpy(tool, scan, precision):
+    """8: TS2D.predict blocking with the native host projection and with
+    numpy's, in turns, median of 5 each."""
+    tool.predict(scan)
+    torch.cuda.synchronize()
+    runs = {'native': [], 'numpy': []}
+    for i in range(5):
+        for name in (('native', 'numpy') if i % 2 == 0 else ('numpy', 'native')):
+            ctx = native_off() if name == 'numpy' else contextlib.nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                tool.predict(scan)
+                torch.cuda.synchronize()
+                runs[name].append(time.perf_counter() - t0)
+    print(f'blocking s/scan ({precision}), median of 5: native projection '
+          f'{float(np.median(runs["native"])):.4f} (runs '
+          f'{[round(t, 4) for t in runs["native"]]}), numpy projection '
+          f'{float(np.median(runs["numpy"])):.4f} (runs '
+          f'{[round(t, 4) for t in runs["numpy"]]})')
+
+
+def file_formats(scan):
+    """8: the phantom written and read back as .nii.gz and .mha; returns
+    the .nii.gz path."""
+    from totalsegmentator2d_tpu_torch.io import write_image
+    paths = {}
+    for ext in ('nii.gz', 'mha'):
+        path = paths[ext] = os.path.join(WORK, f'scan.{ext}')
+        t0 = time.perf_counter()
+        write_image(scan, path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_image(path)
+        t_read = time.perf_counter() - t0
+        same = (np.array_equal(back.array, scan.array)
+                and np.allclose(back.spacing, scan.spacing)
+                and np.allclose(back.origin, scan.origin, atol=1e-5)
+                and np.allclose(back.direction, scan.direction))
+        print(f'.{ext}: write {t_write:.3f} s, read {t_read:.3f} s, '
+              f'{os.path.getsize(path) / 2**20:.1f} MiB on disk; read back '
+              f'equal: {same}')
+        if not same:
+            raise SystemExit(f'the phantom does not read back equal as .{ext}')
+    return paths['nii.gz']
+
+
+def visual_agreement(png, ref, labels):
+    if labels:
+        return float(np.array_equal(png, ref))
+    diff = np.abs(png.astype(int) - ref.astype(int))
+    if png.shape != ref.shape or diff.max() > 1:
+        return 0.0
+    return float((diff == 0).mean())
+
+
+def save_visuals(res):
+    """8: Result.save of one fast result as files, as visuals and as both;
+    the prefilter launches of the 'all' save; the PNGs against the CPU
+    renders of the same images. Returns the launches of the 'all' save."""
+    from totalsegmentator2d_tpu_torch.ops.visual import create_visual
+    times = {}
+    for content in ('file', 'visual'):
+        out = os.path.join(WORK, f'save_{content}')
+        t0 = time.perf_counter()
+        res.save(out, name='scan', content=content)
+        torch.cuda.synchronize()
+        times[content] = time.perf_counter() - t0
+    out = os.path.join(WORK, 'save_all')
+    reset_launches()
+    t0 = time.perf_counter()
+    res.save(out, name='scan', content='all')
+    torch.cuda.synchronize()
+    times['all'] = time.perf_counter() - t0
+    launches = read_launches()
+    files = sorted(os.listdir(out))
+    expect = sorted(f'scan{s}.{e}' for s in ('', '.seg', '_max', '_mean')
+                    for e in ('nrrd', 'png'))
+    print(f'save of one fast result: files {times["file"]:.3f} s, visuals '
+          f'{times["visual"]:.3f} s, both {times["all"]:.3f} s; launches of '
+          f'the save with both: {launches}; wrote {files}')
+    if files != expect:
+        raise SystemExit(f'saved {files}, expected {expect}')
+    if launches != {'bspline_prefilter': 6, 'fused_norm_act_conv': 0}:
+        raise SystemExit(f'prefilter launches of save(content="all") '
+                         f'{launches}, expected 6')
+    renders = {
+        'scan.png': (res.get_input(), dict(labels=False, axis='coronal')),
+        'scan.seg.png': (res.get_segmentation(), dict(labels=True,
+                                                      axis='coronal')),
+        'scan_max.png': (res.get_projection('max'), {}),
+        'scan_mean.png': (res.get_projection('mean'), {})}
+    for name, (img, kw) in renders.items():
+        png = png_pixels(os.path.join(out, name))
+        ref = create_visual(img, device='cpu', **kw).array
+        agree = visual_agreement(png, ref, kw.get('labels', False))
+        print(f'{name}: {png.shape} {png.dtype}, against the CPU render '
+              f'{"bit for bit" if kw.get("labels") else "equal on"} '
+              f'{agree:.6f}')
+        if agree < (1.0 if kw.get('labels') else 0.999):
+            raise SystemExit(f'{name} differs from its CPU render')
+    return launches
+
+
+def http_nifti(tool, nii_path, seg):
+    """8: one POST of the phantom as .nii.gz, answered as .nii.gz."""
+    import urllib.request
+
+    from totalsegmentator2d_tpu_torch.serve import TS2DServer
+    with open(nii_path, 'rb') as f:
+        body = f.read()
+    with TS2DServer(tool, port=0) as srv:
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{srv.port}/predict?input_format=nii.gz'
+            f'&format=nii.gz', data=body, method='POST')
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, payload = r.status, r.read()
+        wall = time.perf_counter() - t0
+    out = os.path.join(WORK, 'resp.seg.nii.gz')
+    with open(out, 'wb') as f:
+        f.write(payload)
+    back = read_image(out)
+    agree = float((back.array == seg.array).mean()) \
+        if back.array.shape == seg.array.shape else 0.0
+    print(f'HTTP POST of a {len(body) / 2**20:.0f} MiB .nii.gz: status '
+          f'{status} in {wall:.3f} s, {len(payload) / 2**20:.2f} MiB .nii.gz '
+          f'answer; agreement with the in-process result {agree:.6f}')
+    if status != 200 or agree < 0.99:
+        raise SystemExit('the .nii.gz POST failed or disagrees')
+
+
+def io_and_visuals(db, scan, host_build_s):
+    """Phase 8. Returns the launches of one save(content='all')."""
+    from totalsegmentator2d_tpu_torch.io import native
+    phase('IO and visuals: the native host library, NIfTI / MetaImage, PNG '
+          'visuals')
+    if not native.native_available():
+        raise SystemExit('the native host library is not available')
+    print(f'native host library loaded from '
+          f'{os.path.relpath(native._load()._name, ROOT)} (built in '
+          f'{host_build_s:.2f} s, phase 1)')
+    host_projection(scan)
+    for precision in ('exact', 'fast'):
+        with TS2D(key='ts2d-v9-flagship', use_remote=False, local=db,
+                  param=FAST if precision == 'fast' else None) as tool:
+            blocking_native_vs_numpy(tool, scan, precision)
+            if precision == 'fast':
+                nii = file_formats(scan)
+                res = tool.predict(scan)
+                launches = save_visuals(res)
+                http_nifti(tool, nii, res.get_segmentation())
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     shutil.rmtree(WORK, ignore_errors=True)
-    smi = device_info()
+    smi, host_build_s = device_info()
     prefilter = check_prefilter()
     fused, fused_per_scan = check_fused_block()
 
@@ -1344,6 +1624,7 @@ def main():
     per_bucket, per_bucket_batch = geometry_as_data(db, scans, arrs,
                                                     fused_per_scan)
     del scans, arrs
+    per_save = io_and_visuals(db, scan, host_build_s)
     kernels = [prefilter, fused]
     for k in kernels:
         name = k['name']
@@ -1356,6 +1637,7 @@ def main():
                k['bucket_batch8']['launches']) < 1:
             raise SystemExit(f'{name} did not run on the main path, the '
                              f'batched serving path or the bucket paths')
+    prefilter['visual']['launches'] = per_save['bspline_prefilter']
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

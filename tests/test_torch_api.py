@@ -4,7 +4,10 @@ reference package's on the same synthetic database (plan spacing
 3D CT asset. Masks agree on >= 99.9% of pixels at exact precision (the
 tests/test_019_full_chain_parity.py bar) and >= 99% at fast precision
 (bf16 U-Nets; tests/test_torch_engine.py says why); the saved files carry
-the same names, geometry and Segment metadata. Sets that do not fuse (a
+the same names, geometry and Segment metadata, and the PNG visuals of one
+result, rendered by both packages, agree (label visuals bit for bit,
+intensity visuals within one gray level on every pixel and equal on
+>= 99.9% of them). Sets that do not fuse (a
 softmax group, groups that disagree on precision) run on per-model engines
 in both packages."""
 
@@ -86,7 +89,7 @@ def test_combine_segmentations_matches_reference_and_merge(results):
 def test_saved_files_match_reference(results, tmp_path):
     ref, out = results
     ref.save(str(tmp_path / 'ref'), name='case', models='all', content='file')
-    out.save(str(tmp_path / 'port'), name='case', models='all')
+    out.save(str(tmp_path / 'port'), name='case', models='all', content='file')
     names = sorted(os.listdir(tmp_path / 'ref'))
     assert sorted(os.listdir(tmp_path / 'port')) == names
     assert 'case.seg.nrrd' in names and 'case_max.nrrd' in names
@@ -98,8 +101,86 @@ def test_saved_files_match_reference(results, tmp_path):
 
 
 def test_save_refuses_visuals(results, tmp_path):
-    with pytest.raises(NotImplementedError):
-        results[1].save(str(tmp_path), content='all')
+    """Visuals are ported; save refuses what the reference refuses: PNG
+    as the file format, an unknown content or naming."""
+    out = results[1]
+    with pytest.raises(ValueError, match='PNG'):
+        out.save(str(tmp_path), ext='png')
+    with pytest.raises(ValueError, match='export type'):
+        out.save(str(tmp_path), content='png')
+    with pytest.raises(ValueError, match='naming'):
+        out.save(str(tmp_path), naming='case')
+    assert out.device == torch.device('cpu')
+
+
+def _jax_image(img):
+    from totalsegmentator2d_tpu.io import MedicalImage as JaxImage
+    return JaxImage(array=img.array, spacing=img.spacing, origin=img.origin,
+                    direction=img.direction, is_vector=img.is_vector,
+                    meta=dict(img.meta))
+
+
+def _jax_result(out):
+    """The reference package's Result holding the port result's images."""
+    data = {'models': {
+        k: {**v, 'input': _jax_image(v['input']),
+            'segmentation': _jax_image(v['segmentation'])}
+        for k, v in out.data['models'].items()}}
+    data['input'] = _jax_image(out.data['input'])
+    data['segmentation'] = _jax_image(out.data['segmentation'])
+    data['projections'] = {k: _jax_image(v)
+                           for k, v in out.data['projections'].items()}
+    return JaxTS2D.Result(data)
+
+
+def assert_visuals_match(port_dir, ref_dir, names):
+    """Label visuals (RGB) bit for bit; intensity visuals (gray) within
+    one gray level and equal on >= 99.9% of the pixels."""
+    Image = pytest.importorskip('PIL.Image')
+    for name in (n for n in names if n.endswith('.png')):
+        a = np.asarray(Image.open(os.path.join(port_dir, name)))
+        b = np.asarray(Image.open(os.path.join(ref_dir, name)))
+        assert a.shape == b.shape and a.dtype == b.dtype == np.uint8, name
+        if a.ndim == 3:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            diff = np.abs(a.astype(int) - b.astype(int))
+            assert diff.max() <= 1, name
+            assert (diff == 0).mean() >= 0.999, name
+
+
+@pytest.mark.parametrize('content,models', [
+    ('file', 'final'), ('visual', 'final'), ('all', 'final'), ('all', 'all'),
+    ('visual', 'all')])
+def test_save_contents_match_reference(results, tmp_path, content, models):
+    """One result saved by both packages: the same file names for each
+    content, and the same visuals."""
+    _, out = results
+    ref = _jax_result(out)
+    ref.save(str(tmp_path / 'ref'), name='case', models=models,
+             content=content)
+    out.save(str(tmp_path / 'port'), name='case', models=models,
+             content=content)
+    names = sorted(os.listdir(tmp_path / 'ref'))
+    assert sorted(os.listdir(tmp_path / 'port')) == names
+    pngs = [n for n in names if n.endswith('.png')]
+    assert bool(pngs) == (content != 'file')
+    if content != 'file':
+        assert 'case.seg.png' in pngs and 'case_max.png' in pngs
+    if models == 'all' and content != 'file':
+        # the per-model inputs are the 2-channel projections: one PNG each
+        assert any(n.endswith('-ch1.png') for n in pngs)
+    assert_visuals_match(str(tmp_path / 'port'), str(tmp_path / 'ref'), names)
+
+
+def test_save_defaults_to_all(results, tmp_path):
+    """save() writes files and visuals unless asked otherwise, as the
+    reference's does."""
+    _, out = results
+    out.save(str(tmp_path), name='case')
+    names = sorted(os.listdir(tmp_path))
+    assert 'case.seg.nrrd' in names and 'case.seg.png' in names
+    assert 'case.png' in names and 'case_mean.png' in names
 
 
 def test_cli_on_cpu(model_root, tmp_path, monkeypatch):
@@ -113,6 +194,23 @@ def test_cli_on_cpu(model_root, tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == [
         'sample_s0521.seg.nrrd', 'sample_s0521_max.nrrd',
         'sample_s0521_mean.nrrd']
+
+
+def test_cli_visualize_on_cpu(model_root, tmp_path, monkeypatch):
+    """--visualize adds the PNG visuals beside the files, with the
+    reference CLI's names; the visuals run the prefilter's plain version
+    here (no kernel launch on the CPU)."""
+    before = bspline_prefilter_cuda.launches
+    monkeypatch.setattr(sys, 'argv', [
+        'ts2d-torch', '-i', asset_path('sample_s0521.nrrd'), '-o',
+        str(tmp_path), '--model', KEY, '--local', model_root,
+        '--device', 'cpu', '--silent', '--visualize'])
+    ts2d_entry_point()
+    assert bspline_prefilter_cuda.launches == before
+    assert sorted(os.listdir(tmp_path)) == [
+        'sample_s0521.seg.nrrd', 'sample_s0521.seg.png',
+        'sample_s0521_max.nrrd', 'sample_s0521_max.png',
+        'sample_s0521_mean.nrrd', 'sample_s0521_mean.png']
 
 
 def test_device_default_needs_cuda(model_root, monkeypatch):

@@ -17,7 +17,10 @@ bit for bit (the exact-numerics flags are process-wide). The bucket
 program (pad_quantum) runs the prefilter on its bucket canvas, solo and
 batched, and repeats bit for bit with scans of different extents in one
 batch; the volume program's projection of an int16 volume is the host's
-bit for bit."""
+bit for bit, and so is the native host library's one-pass projection. The
+visuals run the prefilter kernel in their resample (two launches per
+intensity visual) and equal their CPU renders (label visuals bit for bit,
+intensity visuals within one gray level on every pixel)."""
 
 import numpy as np
 import pytest
@@ -42,13 +45,15 @@ def rng():
     return np.random.default_rng(0)
 
 
-# the main path's projection, the batch-8 shape, and edges of the chunking
+# the main path's projection, the batch-8 shape, the visuals' resample of a
+# (400, 512) image, and edges of the chunking
 # (n = 2, 3, 9, L-1, L, L+1, H+L, 2L+H+3) at inner = 1, 2, 33 and at line
 # counts that are not multiples of a block; (3, 20000, 2) takes the global
 # path with a small inner (its (n, inner) slab exceeds shared memory)
 # the bucket program's canvas of the phantom crops at pad_quantum 64, solo
 # and as the 8-scan batch
 PREFILTER_SHAPES = [((400, 512, 2), 0), ((400, 512, 2), 1),
+                    ((400, 512), 1), ((400, 512), 0),
                     ((8, 400, 512, 2), 1), ((8, 400, 512, 2), 2),
                     ((448, 512, 2), 0), ((448, 512, 2), 1),
                     ((8, 448, 512, 2), 1), ((8, 448, 512, 2), 2),
@@ -368,3 +373,47 @@ def test_volume_projection_equals_host_projection(cuda, rng):
                                                                 (1.0, 1.2)))
     finally:
         engine.close()
+
+
+def test_native_projection_equals_device_projection(cuda, rng):
+    """The native host library's one-pass MAX + MEAN of an int16 volume
+    equals the device projection bit for bit."""
+    from totalsegmentator2d_tpu_torch.io import native
+    from totalsegmentator2d_tpu_torch.ops.projection import (
+        project_array, project_arrays_np)
+    assert native.native_available()
+    vol = np.clip(rng.standard_normal((90, 77, 130)) * 400, -1024,
+                  3071).astype(np.int16)
+    host = project_arrays_np(vol, ('max', 'mean'), 1)
+    dev = torch.from_numpy(vol).to(cuda)
+    for h, mode in zip(host, ('max', 'mean')):
+        d = project_array(dev, mode, 1).float().cpu().numpy()
+        np.testing.assert_array_equal(h, d)
+
+
+def test_visuals_run_the_prefilter_kernel(cuda, rng):
+    """create_visual on the card: an intensity visual resamples at order 3
+    (the prefilter kernel, one launch per axis) and equals its CPU render
+    within one gray level; a label visual (order 0, no prefilter) equals
+    it bit for bit."""
+    from totalsegmentator2d_tpu_torch.io import MedicalImage
+    from totalsegmentator2d_tpu_torch.ops.visual import create_visual
+    vol = np.clip(rng.standard_normal((60, 50, 70)) * 300, -1024,
+                  3071).astype(np.int16)
+    img = MedicalImage(array=vol, spacing=(0.78, 0.78, 1.25))
+    before = PF.bspline_prefilter_cuda.launches
+    out = create_visual(img, axis='coronal', device='cuda')
+    assert PF.bspline_prefilter_cuda.launches == before + 2
+    ref = create_visual(img, axis='coronal', device='cpu')
+    diff = np.abs(out.array.astype(int) - ref.array)
+    assert out.array.shape == ref.array.shape and diff.max() <= 1
+    assert (diff == 0).mean() >= 0.999
+    seg = MedicalImage(array=(vol > 200).astype(np.uint8)[..., None]
+                       .repeat(3, -1), spacing=(0.78, 0.78, 1.25),
+                       is_vector=True)
+    before = PF.bspline_prefilter_cuda.launches
+    lab = create_visual(seg, labels=True, axis='coronal', device='cuda')
+    assert PF.bspline_prefilter_cuda.launches == before
+    np.testing.assert_array_equal(
+        lab.array, create_visual(seg, labels=True, axis='coronal',
+                                 device='cpu').array)

@@ -5,7 +5,9 @@ Checked twice: statically (every import statement in the sources), and at
 run time in a fresh interpreter whose import system refuses ``jax``,
 ``jaxlib`` and ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
 starts with the same letters): every port module imports, chip_smoke.py
-imports, and a small predict runs on the CPU."""
+imports, and a small predict runs on the CPU. The native host library the
+port loads is its own, built into ``totalsegmentator2d_tpu_torch/build/``,
+never the reference package's ``_native/libts2dio.so``."""
 
 import ast
 import os
@@ -86,6 +88,15 @@ with TS2D(key='ts2d-v9-iso', use_remote=False, local=sys.argv[1],
 assert seg.ncomponents == 5, seg
 leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu')]
 assert not leaked, leaked
+import os
+from totalsegmentator2d_tpu_torch.io import native
+from totalsegmentator2d_tpu_torch.ops.cuda.build import BUILD_DIR
+assert native.native_available()
+with open('/proc/self/maps') as f:
+    libs = {line.split()[-1] for line in f if '.so' in line}
+assert not [p for p in libs if 'libts2dio' in p and not p.startswith(
+    os.path.join(BUILD_DIR, 'libts2dio-'))], libs
+assert [p for p in libs if p.startswith(os.path.join(BUILD_DIR, 'libts2dio-'))], libs
 print('OK', len(mods))
 '''
 
@@ -99,3 +110,17 @@ def test_port_runs_with_jax_blocked(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith('OK')
+
+
+def test_native_library_is_the_ports_own():
+    """The bindings build and load ``csrc/ts2dio.cc`` of the port; no
+    source of the port names the reference package's library."""
+    from totalsegmentator2d_tpu_torch.io import native
+    from totalsegmentator2d_tpu_torch.ops.cuda.build import BUILD_DIR
+    assert native.native_available()
+    assert native._load()._name.startswith(os.path.join(BUILD_DIR, 'libts2dio-'))
+    assert BUILD_DIR == os.path.join(PORT, 'build')
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        assert 'libts2dio.so' not in text and "'_native'" not in text, path

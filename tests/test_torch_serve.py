@@ -1,7 +1,8 @@
 """The PyTorch port's HTTP server (totalsegmentator2d_tpu_torch.serve) on
 the CPU: the cases of tests/test_016_serve.py that NRRD inputs allow
 (round trip, concurrent batched requests, metrics, auth, the body cap,
-shutdown drain, timeouts), and the formats that are not ported yet."""
+shutdown drain, timeouts), NIfTI and MetaImage in and out, and the formats
+that are not ported yet."""
 
 import concurrent.futures as cf
 import http.client
@@ -114,16 +115,52 @@ class TestEndpoints:
         assert _seg(body, tmp_path).dim == 2
 
     @pytest.mark.parametrize('query,code,message', [
-        ('?input_format=nii.gz', 400, 'not ported yet'),
-        ('?input_format=zip', 400, 'not ported yet'),
-        ('?input_format=dcm', 400, 'not ported yet'),
+        ('?input_format=zip', 400, 'comes with the zip slice'),
+        ('?input_format=dcm', 400, 'comes with the DICOM slice'),
         ('?input_format=exe', 400, 'unsupported input format'),
-        ('?format=nii', 400, 'not ported yet'),
-        ('?format=exe', 400, 'unsupported output format')])
+        ('?format=exe', 400, 'unsupported output format'),
+        ('?format=png', 400, 'unsupported output format')])
     def test_formats_rejected(self, server, query, code, message):
         status, body, _ = _post(server, _payload(), query)
         assert status == code
         assert message in json.loads(body)['error']
+        if 'slice' in message:
+            assert 'not ported yet' in json.loads(body)['error']
+
+    @pytest.fixture(scope='class')
+    def nrrd_seg(self, server, tmp_path_factory):
+        status, body, _ = _post(server, _payload())
+        assert status == 200
+        return _seg(body, tmp_path_factory.mktemp('nrrd'))
+
+    @pytest.mark.parametrize('in_ext,out_ext', [
+        ('nii.gz', 'nii.gz'), ('nii', 'nii'), ('mha', 'mha'),
+        ('mhd', 'nrrd'), ('nrrd', 'nii.gz'), ('nrrd', 'mha')])
+    def test_formats_roundtrip(self, server, nrrd_seg, tmp_path, in_ext,
+                               out_ext):
+        """A NIfTI or MetaImage body (an .mhd with its data LOCAL) and a
+        NIfTI or MetaImage answer give the NRRD POST's mask."""
+        from totalsegmentator2d_tpu_torch.io import metaimage, write_image
+        img = read_image(asset_path('sample_s0332.nrrd'))
+        src = tmp_path / f'in.{in_ext}'
+        if in_ext == 'mhd':
+            # a detached header cannot be posted; LOCAL data can
+            metaimage.write(img, str(tmp_path / 'in.mha'))
+            src = tmp_path / 'in.mha'
+        else:
+            write_image(img, str(src))
+        status, body, headers = _post(
+            server, src.read_bytes(),
+            f'?input_format={in_ext}&format={out_ext}')
+        assert status == 200, body
+        assert f'seg.{out_ext}' in headers['Content-Disposition']
+        seg, ref = _seg(body, tmp_path, f'seg.{out_ext}'), nrrd_seg
+        np.testing.assert_array_equal(seg.array, ref.array)
+        np.testing.assert_allclose(seg.spacing, ref.spacing, rtol=1e-6)
+        np.testing.assert_allclose(seg.origin, ref.origin, rtol=1e-6,
+                                   atol=1e-4)
+        np.testing.assert_allclose(seg.direction, ref.direction, atol=1e-6)
+        assert 'heart' in json.loads(headers['X-TS2D-Labels'])
 
     def test_bad_payload(self, server):
         status, body, _ = _post(server, b'not an image')

@@ -17,8 +17,10 @@ predictions coalesce into micro-batched programs of up to 8 scans
 built on these. With ``pad_quantum=N`` a fused set serves every crop
 through the bucket program of its shape bucket (inference/bucket.py).
 
+``Result.save`` writes NRRD, NIfTI or MetaImage files and PNG visuals
+(``content='visual'|'all'``), the visuals rendered on the tool's device.
 Not ported yet, and raising when asked for: the remote model registry
-(``use_remote=True``), PNG visuals.
+(``use_remote=True``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .io import MedicalImage, read_image, write_image
 from .ops.annotations import combine_segmentations, set_annotation_meta
 from .ops.geometry import reduce_dimensions, reorient, restore_dimension
 from .ops.projection import project_multi
+from .ops.visual import create_visual
 from .utils.config import get_label_colors
 from .utils.device import resolve_device
 from .utils.files import mkdirs
@@ -229,7 +232,7 @@ class TS2D:
         result['input'] = input
         if cache.get('projections'):
             result['projections'] = cache['projections']
-        return TS2D.Result(result)
+        return TS2D.Result(result, device=self.device)
 
     def _input(self, input: Union[MedicalImage, str]) -> MedicalImage:
         if isinstance(input, str):
@@ -381,13 +384,17 @@ class TS2D:
         result['input'] = original
         if cache.get('projections'):
             result['projections'] = cache['projections']
-        return TS2D.Result(result)
+        return TS2D.Result(result, device=self.device)
 
     # -- results ------------------------------------------------------------
 
     class Result:
-        def __init__(self, data: dict):
+        """A prediction's images; ``device`` is where :meth:`save` renders
+        visuals (the tool's device; None = the CUDA card)."""
+
+        def __init__(self, data: dict, device=None):
             self.data = data
+            self.device = device
 
         @property
         def models(self) -> List[str]:
@@ -421,23 +428,28 @@ class TS2D:
         def save(self, dest: str, name: str = 'result', ext: str = 'nrrd',
                  models: Union[str, List[str]] = 'final',
                  targets: Union[str, List[str]] = 'all',
-                 content: str = 'file',
+                 content: str = 'all',
                  naming: str = 'group') -> None:
-            """Export results as ``<name>[-<group>][.seg].<ext>`` and
-            projections as ``<name>_<channel>.<ext>``.
+            """Export results with the reference's naming matrix
+            (tool.py:235-311): ``<name>[-<group>][.seg].<ext>``,
+            projections ``<name>_<channel>.<ext>``, PNG visuals beside
+            them as ``.png``.
 
+            :param ext: 'nrrd', 'nii', 'nii.gz' or 'mha' (not 'png')
             :param models: 'final', 'all', or explicit model ids
             :param targets: subset of {'input','segmentation','projection'} or 'all'
-            :param content: 'file' (PNG visuals are not ported yet)
+            :param content: 'file', 'visual' or 'all'
             :param naming: 'group' (default) or 'model'
             """
-            if content != 'file':
-                raise NotImplementedError(
-                    f"content={content!r}: PNG visuals are not ported to the "
-                    f"PyTorch package yet; use content='file'")
+            if ext.lower() == 'png':
+                raise ValueError("PNG is not a valid export format for the "
+                                 "'file' content type.")
             if naming not in ('group', 'model'):
                 raise ValueError(f"Invalid naming scheme '{naming}', must be "
                                  f"'group' or 'model'.")
+            if content not in ('file', 'visual', 'all'):
+                raise ValueError(f"Invalid export type '{content}'.")
+            contents = {'visual', 'file'} if content == 'all' else {content}
 
             model_set = as_set(str(t).strip().lower() for t in as_list(models))
             if 'all' in model_set:
@@ -452,19 +464,42 @@ class TS2D:
                     return f'{base}-{decompose_model_key(key)[1]}'
                 return base if key is None else f'{base}-{key}'
 
+            def _visual(img, **kwargs):
+                return create_visual(img, device=self.device, **kwargs)
+
+            def _export(img: MedicalImage, base: str, suffix: str = '',
+                        labels=False):
+                if 'file' in contents:
+                    write_image(img, os.path.join(dest, f'{base}{suffix}.{ext}'))
+                if 'visual' not in contents:
+                    return
+                if labels:
+                    vis = _visual(img, labels=True, axis='coronal')
+                    write_image(vis, os.path.join(dest, f'{base}{suffix}.png'))
+                    return
+                nch = img.ncomponents
+                for cidx, ch in enumerate(img.split_channels()):
+                    vis = _visual(ch, labels=False, axis='coronal')
+                    fn = (f'{base}{suffix}.png' if nch == 1
+                          else f'{base}-ch{cidx}{suffix}.png')
+                    write_image(vis, os.path.join(dest, fn))
+
             mkdirs(dest)
             if {'all', 'input'} & target_set:
                 for key in model_set:
                     img = self.get_input(key)
                     if img is not None:
-                        write_image(img, os.path.join(
-                            dest, f'{_filename(name, key)}.{ext}'))
+                        _export(img, _filename(name, key))
             if {'all', 'segmentation'} & target_set:
                 for key in model_set:
                     img = self.get_segmentation(key)
                     if img is not None:
-                        write_image(img, os.path.join(
-                            dest, f'{_filename(name, key)}.seg.{ext}'))
+                        _export(img, _filename(name, key), suffix='.seg',
+                                labels=True)
             if {'all', 'projection'} & target_set:
                 for channel, img in self.get_projection().items():
-                    write_image(img, os.path.join(dest, f'{name}_{channel}.{ext}'))
+                    base = f'{name}_{channel}'
+                    if 'file' in contents:
+                        write_image(img, os.path.join(dest, f'{base}.{ext}'))
+                    if 'visual' in contents:
+                        write_image(_visual(img), os.path.join(dest, f'{base}.png'))

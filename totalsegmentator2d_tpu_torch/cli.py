@@ -2,10 +2,11 @@
 
     python -m totalsegmentator2d_tpu_torch -i <file|dir> -o <dir>
         [--local DB] [--model KEY] [--device cuda|cpu] [--collapse]
-        [--save-all] [--silent] [--no-batching] [--trace DIR]
+        [--visualize] [--save-all] [--silent] [--no-batching] [--trace DIR]
 
 The flags and output naming follow the reference tool. Models come from the
-local database (the remote registry is not ported yet). ``--device`` picks
+local database (the remote registry is not ported yet). ``--visualize``
+adds PNG visuals beside the files. ``--device`` picks
 where the models run: the CUDA card by default (an error if there is none),
 ``cpu`` only when asked for. A directory of cases runs pipelined (read-
 ahead, micro-batched dispatch, background export).
@@ -52,7 +53,7 @@ def _enumerate_cases(src: str) -> Iterator[Tuple[str, str]]:
 
 
 def ts2d_run(src: str, dest: str, model: Optional[str] = None,
-             collapse: bool = False,
+             collapse: bool = False, visualize: bool = True,
              save_all: bool = False, silent: bool = False,
              local: Optional[str] = None, device=None,
              trace: Optional[str] = None, batching: bool = True) -> None:
@@ -61,7 +62,8 @@ def ts2d_run(src: str, dest: str, model: Optional[str] = None,
     up to 8 scans in flight for the micro-batcher, background export).
     ``trace`` writes a torch.profiler trace of the run into that directory;
     ``batching=False`` turns micro-batching off for bitwise run-to-run
-    consistency (see TS2D)."""
+    consistency (see TS2D). ``visualize`` writes PNG visuals beside the
+    files (the CLI's ``--visualize``)."""
     from .api import TS2D
     from .utils.trace import device_trace
 
@@ -79,6 +81,7 @@ def ts2d_run(src: str, dest: str, model: Optional[str] = None,
                 warn(f'No supported input found in {src}')
             save_kwargs = dict(dest=dest,
                                models='all' if save_all else 'final',
+                               content='all' if visualize else 'file',
                                targets=['segmentation', 'projection'])
             if n > 1:
                 from .inference.pipeline import ScanPipeline
@@ -101,7 +104,8 @@ def ts2d_entry_point() -> None:
                     'images or directories of images to automatically '
                     'segment anatomical structures.')
     parser.add_argument('--src', '-i', '--input', type=str, required=True,
-                        help='Input image file or directory (nrrd).')
+                        help='Input image file or directory (nrrd, nii, '
+                             'nii.gz, mha, mhd).')
     parser.add_argument('--dest', '-o', '--output', type=str, required=True,
                         help='Output directory for results.')
     parser.add_argument('--model', type=str, default=None,
@@ -110,6 +114,9 @@ def ts2d_entry_point() -> None:
     parser.add_argument('--collapse', action='store_true',
                         help='Collapse projected images to 2D. This removes '
                              'the 3D geometrical information.')
+    parser.add_argument('--visualize', action='store_true',
+                        help='Additionally generate PNG visualizations of '
+                             'the results.')
     parser.add_argument('--save-all', action='store_true',
                         help='In addition to the final result, also saves '
                              'results for each individual model.')
@@ -134,7 +141,7 @@ def ts2d_entry_point() -> None:
 
     args = parser.parse_args()
     ts2d_run(src=args.src, dest=args.dest, model=args.model,
-             collapse=args.collapse,
+             collapse=args.collapse, visualize=args.visualize,
              save_all=args.save_all, silent=args.silent, local=args.local,
              device=args.device, trace=args.trace,
              batching=not args.no_batching)

@@ -50,7 +50,7 @@ from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
 from ..ops.normalize import nonzero_norm_mask
-from ..ops.projection import project_array, project_array_np
+from ..ops.projection import project_array, project_arrays_np
 from ..utils.device import exact_numerics
 from ..utils.logging import log, warn
 from .bucket import BucketProgram
@@ -684,7 +684,7 @@ class EnsembleEngine(ScanEngine):
 
     def _host_projection(self, vol: np.ndarray, modes) -> np.ndarray:
         """(Z, Y, X) -> (Z, X, C) float32 on the host."""
-        return np.concatenate([project_array_np(vol, m, 1) for m in modes],
+        return np.concatenate(project_arrays_np(vol, modes, 1),
                               axis=1).transpose(0, 2, 1).astype(np.float32)
 
     def _build_volume(self, vol_shape: Tuple[int, int, int],

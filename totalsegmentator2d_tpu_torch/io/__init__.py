@@ -1,16 +1,27 @@
-"""Host-side medical image IO: NRRD (``.nrrd``, ``.seg.nrrd``, ``.nhdr``).
+"""Host-side medical image IO: NRRD (``.nrrd``, ``.seg.nrrd``, ``.nhdr``),
+NIfTI (``.nii``, ``.nii.gz``) and MetaImage (``.mha``, ``.mhd``) read and
+write, and PNG export for visuals (the package's own encoder).
 
-NIfTI, MetaImage, PNG and DICOM are not ported yet and raise.
+DICOM (files, directories and zipped series) and raster inputs (png, bmp,
+tif) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
-from .image import MedicalImage  # noqa: F401
-from . import nrrd
+import numpy as np
 
-SUPPORTED_EXTENSIONS = ('nrrd', 'nhdr')
+from .image import (MedicalImage, image_from_array, is_label_dtype,  # noqa: F401
+                    is_label_image)
+from . import metaimage, nifti, nrrd
+
+SUPPORTED_EXTENSIONS = ('nrrd', 'nhdr', 'nii', 'nii.gz', 'mha', 'mhd')
+
+_DICOM_EXTENSIONS = ('dcm', 'dicom', 'ima')
+_RASTER_EXTENSIONS = ('png', 'bmp', 'tif', 'tiff')
 
 
 def _ext(path: str) -> str:
@@ -20,21 +31,83 @@ def _ext(path: str) -> str:
     return base.rsplit('.', 1)[-1] if '.' in base else ''
 
 
-def _not_ported(path: str) -> NotImplementedError:
+def _not_ported(path: str, what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
-        f'Image format of {path!r} is not ported to the PyTorch package yet '
-        f'(supported: {", ".join(SUPPORTED_EXTENSIONS)})')
+        f'{what} ({path!r}) is not ported to the PyTorch package yet: it '
+        f'comes with the {slice_} slice (supported: '
+        f'{", ".join(SUPPORTED_EXTENSIONS)})')
 
 
 def read_image(path: str) -> MedicalImage:
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if _ext(path) in SUPPORTED_EXTENSIONS:
+    ext = _ext(path)
+    if os.path.isdir(path) or ext in _DICOM_EXTENSIONS:
+        raise _not_ported(path, 'DICOM', 'DICOM')
+    if ext == 'zip':
+        raise _not_ported(path, 'A zipped DICOM series', 'zip')
+    if ext in _RASTER_EXTENSIONS:
+        raise _not_ported(path, 'A raster input', 'raster input')
+    if ext in ('nrrd', 'nhdr'):
         return nrrd.read(path)
-    raise _not_ported(path)
+    if ext in ('nii', 'nii.gz'):
+        return nifti.read(path)
+    if ext in ('mha', 'mhd'):
+        return metaimage.read(path)
+    raise ValueError(f'Unsupported image format: {path}')
 
 
 def write_image(img: MedicalImage, path: str, compress: bool = True) -> None:
-    if _ext(path) in SUPPORTED_EXTENSIONS:
+    ext = _ext(path)
+    if ext in ('nrrd', 'nhdr'):
         return nrrd.write(img, path, compress=compress)
-    raise _not_ported(path)
+    if ext in ('nii', 'nii.gz'):
+        return nifti.write(img, path)
+    if ext in ('mha', 'mhd'):
+        return metaimage.write(img, path, compress=compress)
+    if ext == 'png':
+        return write_png(img, path)
+    raise ValueError(f'Unsupported image format: {path}')
+
+
+_PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack('>I', len(data)) + kind + data
+            + struct.pack('>I', zlib.crc32(kind + data)))
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """The PNG file of an (H, W) gray or (H, W, 3) RGB uint8 array: 8 bits
+    per sample, no interlace, filter 0 (none) on every row, one zlib IDAT."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    if arr.ndim == 2:
+        color = 0
+    elif arr.ndim == 3 and arr.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError(f'PNG export takes gray or RGB, got shape {arr.shape}')
+    h, w = arr.shape[:2]
+    rows = arr.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    ihdr = struct.pack('>IIBBBBB', w, h, 8, color, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b'IHDR', ihdr)
+            + _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b'IEND', b''))
+
+
+def write_png(img: MedicalImage, path: str) -> None:
+    """Export a 2D uint8 image (scalar or RGB) as PNG; a 3D image with a
+    size-1 axis counts as 2D. Other dtypes are clipped to [0, 255]."""
+    if img.dim != 2 and not (img.dim == 3 and 1 in img.size):
+        raise ValueError(f'PNG export needs a 2D image, got size {img.size}')
+    arr = np.asarray(img.array)
+    spatial = arr.shape[:-1] if img.is_vector else arr.shape
+    keep = [s for s in spatial if s > 1]
+    keep = [1] * (2 - len(keep)) + keep if len(keep) < 2 else keep
+    arr = arr.reshape(keep + ([arr.shape[-1]] if img.is_vector else []))
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    with open(path, 'wb') as f:
+        f.write(encode_png(arr))

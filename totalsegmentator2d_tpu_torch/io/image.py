@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import copy as _copy
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -90,6 +90,16 @@ class MedicalImage:
         p = np.asarray(point, dtype=float) - np.asarray(self.origin)
         return (np.linalg.inv(self.direction) @ p) / np.asarray(self.spacing)
 
+    def copy_geometry_from(self, other: 'MedicalImage') -> 'MedicalImage':
+        self.spacing = tuple(other.spacing)
+        self.origin = tuple(other.origin)
+        self.direction = other.direction.copy()
+        return self
+
+    def copy_meta_from(self, other: 'MedicalImage') -> 'MedicalImage':
+        self.meta = dict(other.meta)
+        return self
+
     # -- conversions -----------------------------------------------------
 
     def astype(self, dtype) -> 'MedicalImage':
@@ -153,6 +163,32 @@ class MedicalImage:
     def __repr__(self) -> str:
         return (f'MedicalImage(size={self.size}, spacing={self.spacing}, '
                 f'dtype={self.array.dtype}, components={self.ncomponents})')
+
+
+# -- construction helpers ----------------------------------------------------
+
+def image_from_array(arr: np.ndarray, is_vector: bool = False,
+                     ref: Optional[MedicalImage] = None, **geo) -> MedicalImage:
+    """A MedicalImage of a numpy array, optionally with the geometry and
+    metadata of a reference image."""
+    img = MedicalImage(array=np.asarray(arr), is_vector=is_vector, **geo)
+    if ref is not None:
+        img.copy_geometry_from(ref)
+        img.copy_meta_from(ref)
+    return img
+
+
+_LABEL_DTYPES = (np.uint8, np.uint16, np.uint32, np.uint64, np.int8, np.bool_)
+
+
+def is_label_dtype(dtype) -> bool:
+    """The reference tool's convention (sitk_util.py:17-31): unsigned
+    integer (and int8, bool) pixel types are label images."""
+    return any(np.issubdtype(dtype, t) for t in _LABEL_DTYPES)
+
+
+def is_label_image(img: MedicalImage) -> bool:
+    return is_label_dtype(img.array.dtype)
 
 
 def _parser_errors():

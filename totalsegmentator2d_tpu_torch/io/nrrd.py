@@ -3,20 +3,20 @@
 Implements the subset of the NRRD4/5 format the TS2D pipeline uses
 (reference relies on SimpleITK's NrrdImageIO): scalar and vector images,
 raw/gzip/ascii encodings, `space`/`space dimension` geometry, key:=value
-metadata. Payloads are compressed with Python's zlib/gzip.
+metadata. gzip payloads go through the native host library (io/native.py),
+or Python's gzip/zlib where it cannot be had.
 
 Format reference: https://teem.sourceforge.net/nrrd/format.html
 """
 
 from __future__ import annotations
 
-import gzip
 import io as _io
-import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import native as _native
 from .image import MedicalImage, reader_guard, resolve_datafile
 
 _MAGIC = b'NRRD'
@@ -121,11 +121,8 @@ def _decode_payload(f, encoding: str, dtype: np.dtype, count: int,
             raise ValueError('Truncated NRRD raw payload')
         return np.frombuffer(buf, dtype=dtype, count=count)
     if encoding in ('gzip', 'gz'):
-        data = f.read()
-        # gzip.decompress reads multi-member streams (pigz/bgzip), which
-        # zlib would silently truncate to the first member
-        raw = gzip.decompress(data) if data[:2] == b'\x1f\x8b' \
-            else zlib.decompress(data)
+        # gzip members concatenated (pigz/bgzip) decode in full
+        raw = _native.gzip_decompress(f.read(), size=count * dtype.itemsize)
         return np.frombuffer(raw, dtype=dtype, count=count)
     if encoding in ('ascii', 'text', 'txt'):
         return np.loadtxt(_io.TextIOWrapper(f), dtype=dtype).reshape(-1)[:count]
@@ -278,8 +275,7 @@ def write(img: MedicalImage, path: str, compress: bool = True,
 
     payload = arr.tobytes()
     if compress:
-        c = zlib.compressobj(compression_level, zlib.DEFLATED, 31)  # gzip
-        payload = c.compress(payload) + c.flush()
+        payload = _native.gzip_compress(payload, level=compression_level)
 
     with open(path, 'wb') as f:
         f.write('\n'.join(lines).encode('utf-8'))

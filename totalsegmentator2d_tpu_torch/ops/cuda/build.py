@@ -1,11 +1,15 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``build/lib<name>-<hash>.so`` inside the package (the directory is ignored
-by git), where the hash covers the source and the flags: an unchanged
-kernel is built once per checkout. All sources compile concurrently, one
-nvcc process each. Nothing is built when a module is imported; the first
-launch of a kernel, or :func:`build`, does it.
+Each ``csrc/<name>.cu`` is a CUDA kernel with a plain C interface; it
+compiles on its own with nvcc into ``build/lib<name>-<hash>.so`` inside the
+package (the directory is ignored by git), where the hash covers the source
+and the flags: an unchanged kernel is built once per checkout. All kernel
+sources compile concurrently, one nvcc process each. Each ``csrc/<name>.cc``
+is a host library (the IO codecs and the host projection, io/native.py),
+built the same way with the host C++ compiler (``$CXX`` or g++) and linked
+with zlib, on any machine, card or not. Nothing is built when a module is
+imported; the first use of a library, :func:`build` or :func:`build_host`,
+does it.
 """
 
 from __future__ import annotations
@@ -26,8 +30,14 @@ BUILD_DIR = os.path.join(_PKG, 'build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
+# the host libraries: -ffp-contract=off keeps every float operation rounded
+# on its own, as numpy and the device code round them
+CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-shared', '-ffp-contract=off')
+CXX_LIBS = ('-lz',)
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def sources() -> list:
@@ -45,9 +55,9 @@ def nvcc_path() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(SOURCE_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+def _target(name: str, ext: str = '.cu', flags=NVCC_FLAGS) -> str:
+    with open(os.path.join(SOURCE_DIR, name + ext), 'rb') as f:
+        digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
     return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
 
 
@@ -88,4 +98,45 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(build([name])[name])
             _libs[name] = lib
+        return lib
+
+
+def cxx_path() -> str:
+    cxx = os.environ.get('CXX') or 'g++'
+    path = shutil.which(cxx)
+    if not path:
+        raise RuntimeError(f'the host C++ compiler {cxx!r} was not found: it '
+                           f'is needed to build the host libraries')
+    return path
+
+
+def build_host(name: str, defines: Iterable[str] = ()) -> str:
+    """Compile the host library ``csrc/<name>.cc`` (with ``-D`` for each
+    of ``defines``) unless it is built; returns its path. Raises with the
+    compiler's output when the build fails."""
+    flags = CXX_FLAGS + tuple(f'-D{d}' for d in defines)
+    target = _target(name, '.cc', flags + CXX_LIBS)
+    if os.path.exists(target):
+        return target
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{target}.{os.getpid()}.{threading.get_ident()}.tmp'
+    cmd = [cxx_path(), *flags, '-o', tmp, os.path.join(SOURCE_DIR, name + '.cc'),
+           *CXX_LIBS]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{name}.cc (exit {proc.returncode}):\n'
+                           f'{proc.stdout.decode(errors="replace")}')
+    os.replace(tmp, target)  # atomic, as for the kernels
+    return target
+
+
+def host_library(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
+    """The loaded host library, built on first use. ``ctypes.CDLL``
+    releases the GIL during every call into it."""
+    key = (name, tuple(defines))
+    with _lock:
+        lib = _host_libs.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(name, key[1]))
+            _host_libs[key] = lib
         return lib

@@ -109,6 +109,17 @@ def reorient(img: MedicalImage, orient: str = 'RAI') -> MedicalImage:
                        origin=origin, direction=direction)
 
 
+def orientation_code(direction: np.ndarray) -> str:
+    """The ITK 'from'-convention orientation code of a direction matrix."""
+    inv = {v: k for k, v in _LETTER_AXIS.items()}
+    code = ''
+    for j in range(direction.shape[1]):
+        k = int(np.argmax(np.abs(direction[:, j])))
+        s = 1 if direction[k, j] >= 0 else -1
+        code += inv[(k, s)]
+    return code
+
+
 def reduce_dimensions(img: MedicalImage, min_dims: int = 0) -> MedicalImage:
     """Collapse size-1 axes (reference image.py:241-258), optionally keeping
     at least ``min_dims`` dimensions (refilling from the end)."""

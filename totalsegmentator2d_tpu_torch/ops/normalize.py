@@ -6,7 +6,7 @@ as in the reference package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,3 +94,46 @@ def nonzero_norm_mask(arr: np.ndarray) -> np.ndarray:
     a = np.asarray(arr)
     mask = np.any(a != 0, axis=-1) if a.ndim == 3 else (a != 0)
     return binary_fill_holes(mask)
+
+
+def intensity_window(x: torch.Tensor, lower: float, upper: float,
+                     out_min: float = 0.0, out_max: float = 255.0) -> torch.Tensor:
+    """sitk.IntensityWindowing: the linear map [lower, upper] -> [out_min,
+    out_max], clipped, in float32 on the tensor's device. The scale is
+    rounded to float32 as the reference computes it, and the map runs as
+    separate operations (no fused multiply-add): a visual truncates the
+    result to uint8, where one ulp can move a pixel by a gray level."""
+    f32 = np.float32
+    scale = float(f32(out_max - out_min) / f32(max(upper - lower, 1e-12)))
+    x = x.to(torch.float32)
+    y = torch.sub(x, float(f32(lower)))
+    y = torch.mul(y, scale)
+    y = torch.add(y, float(f32(out_min)))
+    return torch.clamp(y, float(f32(out_min)), float(f32(out_max)))
+
+
+def auto_window(arr: Union[torch.Tensor, np.ndarray],
+                method: Optional[str] = None) -> Tuple[float, float]:
+    """Automatic intensity window of a tensor: 'minmax' (default), on its
+    device, or the percentiles 'pcN' (N, 100-N) / 'pcA-B' (reference
+    image.py:458-481), which numpy computes on the host: its interpolation
+    rounds in the array's dtype, and the window must match it."""
+    x = torch.as_tensor(arr)
+    method = (method or 'minmax').lower()
+    if method == 'minmax':
+        return float(torch.min(x)), float(torch.max(x))
+    if method.startswith('pc'):
+        spec = method[2:]
+        try:
+            if '-' in spec:
+                pc = tuple(float(a) for a in spec.split('-'))
+            else:
+                v = float(spec)
+                pc = (v, 100.0 - v)
+        except ValueError as ex:
+            raise ValueError(f'Failed to parse percentile window: {method}') from ex
+        if len(pc) != 2:
+            raise ValueError(f'Percentile window needs exactly two values: {method}')
+        lo, hi = np.percentile(x.detach().cpu().numpy(), pc)
+        return float(lo), float(hi)
+    raise ValueError(f'Unknown windowing method: {method}')

@@ -5,7 +5,9 @@ Mode set as in the reference tool: first / max|mip / min / avg|mean /
 median / std / depth / multiclass / slice[:pos] ('xr' is rejected).
 The mean of an integer volume is exact on both: a 64-bit integer sum
 divided in float64, then rounded to float32, so the device projection of
-an int16 CT equals the host one bit for bit.
+an int16 CT equals the host one bit for bit. On the host, the MAX and MEAN
+of an int16 (Z, Y, X) volume along Y run in one native pass
+(io/native.project_max_mean, the same values as numpy's).
 
 Geometry: the projected axis keeps size 1 and absorbs the full physical
 extent (out_spacing[axis] = in_spacing[axis] * in_size[axis]), as ITK's
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..io.image import MedicalImage
+from ..io.native import project_max_mean
 from ..utils.device import resolve_device
 from ..utils.params import parse_float
 from .geometry import axis_name_to_index
@@ -34,8 +37,12 @@ def project_array_np(arr: np.ndarray, mode: str, axis: int) -> np.ndarray:
     if mode == 'min':
         return np.expand_dims(np.min(arr, axis=axis), axis)
     if mode in ('avg', 'mean'):
+        if arr.ndim == 3 and axis == 1 and arr.dtype == np.int16:
+            res = project_max_mean(np.ascontiguousarray(arr))
+            if res is not None:
+                return np.expand_dims(res[1], 1)
         # double accumulation: exact for integer CTs, and the same values
-        # as the reference package's int64-sum mean
+        # as the native pass and the reference package's int64-sum mean
         return np.expand_dims(
             np.mean(arr, axis=axis, dtype=np.float64).astype(np.float32), axis)
     if mode == 'median':
@@ -86,11 +93,40 @@ def project_array(arr: torch.Tensor, mode: str, axis: int) -> torch.Tensor:
     raise ValueError(f'Unsupported projection mode: {mode}')
 
 
+def project_arrays_np(arr: np.ndarray, modes: Sequence[str],
+                      axis: int) -> List[np.ndarray]:
+    """Several projection modes of one volume. MAX and MEAN of an int16
+    (Z, Y, X) volume along axis 1 come from one native pass, float32 (the
+    engine takes float32 either way); other sets go mode by mode through
+    :func:`project_array_np`, with its dtypes."""
+    modes_l = [str(m).lower().strip() for m in modes]
+    if (axis == 1 and arr.ndim == 3 and arr.dtype == np.int16
+            and len(modes_l) > 1
+            and set(modes_l) <= {'max', 'mip', 'avg', 'mean'}):
+        res = project_max_mean(np.ascontiguousarray(arr))
+        if res is not None:
+            mx, mn = res
+            by = {'max': mx, 'mip': mx, 'avg': mn, 'mean': mn}
+            return [np.expand_dims(by[m], 1) for m in modes_l]
+    return [project_array_np(arr, m, axis) for m in modes_l]
+
+
 def project_multi(img: MedicalImage, modes: Sequence[str],
                   axis: Union[int, str] = -1) -> List[MedicalImage]:
     """:func:`project` for several modes at once, float32 outputs: the
-    channel projections of the fused-ensemble path."""
-    return [project(img, mode=m, axis=axis).astype(np.float32) for m in modes]
+    channel projections of the fused-ensemble path, in one native pass
+    where it applies. Modes outside the plain reductions (``slice:``,
+    ``multiclass:``, median, std, ...) go through :func:`project` one by
+    one."""
+    modes_l = [str(m).lower().strip() for m in modes]
+    if not set(modes_l) <= {'max', 'mip', 'min', 'avg', 'mean'}:
+        return [project(img, mode=m, axis=axis).astype(np.float32)
+                for m in modes_l]
+    itk_axis = axis_name_to_index(axis) if isinstance(axis, str) else \
+        list(range(img.dim))[axis]
+    outs = project_arrays_np(img.array, modes_l, img.dim - 1 - itk_axis)
+    return [_projected_image(img, np.asarray(o, np.float32), itk_axis)
+            for o in outs]
 
 
 def project(img: MedicalImage, mode: str = 'max',
@@ -180,3 +216,18 @@ def _project_multiclass(img: MedicalImage, num: Optional[int], axis: int) -> Med
         return _projected_image(img, onehot.astype(np.uint8), axis, is_vector=True)
     # already multichannel: max-project each channel
     return _projected_image(img, np.max(img.array, axis=np_axis, keepdims=True), axis)
+
+
+def flatten_vector_max(img: MedicalImage, index: bool = False) -> MedicalImage:
+    """Collapse a vector image to one channel: the per-voxel max over its
+    components, or (``index=True``) the 1-based index of the last nonzero
+    component, 0 where all are zero (reference image.py:266-290)."""
+    if img.ncomponents <= 1:
+        return img
+    arr = img.array
+    if index:
+        comp = np.arange(1, arr.shape[-1] + 1)
+        out = np.max(np.where(arr != 0, comp, 0), axis=-1).astype(np.int64)
+    else:
+        out = np.max(arr, axis=-1)
+    return img.replace(array=out, is_vector=False)

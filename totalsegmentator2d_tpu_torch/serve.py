@@ -12,11 +12,11 @@ GET  /health            -> {"status": "ok", "models": [...]}
 GET  /labels            -> {"<model id>": {"1": "heart", ...}, ...}
 GET  /metrics           -> request/latency counters and the micro-batcher's
                            occupancy (JSON)
-POST /predict           body: a NRRD image (the format the package reads;
-                        input_format=nii/nii.gz/mha/mhd/dcm/zip answer 400
-                        "not ported yet")
-     query params:      input_format=nrrd, collapse=0|1, format=nrrd
-     response:          merged multilabel segmentation (NRRD); label
+POST /predict           body: an image file (NRRD, NIfTI or MetaImage;
+                        input_format=dcm/zip answer 400 "not ported yet")
+     query params:      input_format=nrrd|nii|nii.gz|mha|mhd, collapse=0|1,
+                        format=nrrd|nii|nii.gz|mha
+     response:          merged multilabel segmentation in ``format``; label
                         metadata rides in X-TS2D-Labels (JSON)
 
 Start:  python -m totalsegmentator2d_tpu_torch.serve --local DB
@@ -56,9 +56,10 @@ from .utils.logging import log, warn
 #: default request-body ceiling (512 MiB covers any realistic CT upload)
 DEFAULT_MAX_BODY = 512 * 1024 * 1024
 
-#: formats of the reference server the IO slice of the port brings
-_NOT_PORTED_INPUTS = ('nii', 'nii.gz', 'mha', 'mhd', 'dcm', 'zip')
-_NOT_PORTED_OUTPUTS = ('nii', 'nii.gz', 'mha')
+INPUT_FORMATS = ('nrrd', 'nii', 'nii.gz', 'mha', 'mhd')
+OUTPUT_FORMATS = ('nrrd', 'nii', 'nii.gz', 'mha')
+#: input formats of the reference server that later slices of the port bring
+_NOT_PORTED_INPUTS = {'dcm': 'DICOM', 'zip': 'zip'}
 
 
 def _error(status: int, message: str):
@@ -219,14 +220,13 @@ class TS2DServer:
         collapse = query.get('collapse', ['0'])[0] in ('1', 'true')
         # both are interpolated into paths below: a strict whitelist
         if ext in _NOT_PORTED_INPUTS:
-            return _error(400, f'input format {ext} is not ported yet (this '
-                               f'server reads nrrd)')
-        if ext != 'nrrd':
+            return _error(400, f'input format {ext} is not ported yet: it '
+                               f'comes with the {_NOT_PORTED_INPUTS[ext]} '
+                               f'slice (this server reads '
+                               f'{", ".join(INPUT_FORMATS)})')
+        if ext not in INPUT_FORMATS:
             return _error(400, f'unsupported input format {ext}')
-        if out_fmt in _NOT_PORTED_OUTPUTS:
-            return _error(400, f'output format {out_fmt} is not ported yet '
-                               f'(this server writes nrrd)')
-        if out_fmt != 'nrrd':
+        if out_fmt not in OUTPUT_FORMATS:
             return _error(400, f'unsupported output format {out_fmt}')
 
         with tempfile.TemporaryDirectory(prefix='ts2d-serve-') as tmp:

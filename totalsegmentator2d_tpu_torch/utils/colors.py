@@ -9,7 +9,7 @@ conversions between names / float RGB / int RGB / hex.
 from __future__ import annotations
 
 import random
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -121,3 +121,18 @@ def color_str_to_rgb(s: str) -> tuple:
     return tuple_to_color(tuple(float(c) for c in s.replace(',', ' ').split()))
 
 
+def to_palette(v: Union[Dict[int, ColorLike], Sequence[ColorLike]]) -> List[list]:
+    """Dense palette (RGB triples indexed by label value) from a sparse
+    {label: color} dict or a color list. Index 0 (background) is white, so
+    visuals render on a white canvas; labels without a color get the
+    default palette's."""
+    if isinstance(v, dict):
+        if any((not isinstance(k, (int, np.integer))) or k < 0 for k in v):
+            raise ValueError('Dict palettes need non-negative integer keys')
+        lim = max(v.keys()) if v else 0
+        res = [[255, 255, 255]]
+        for idx in range(1, lim + 1):
+            c = v.get(idx)
+            res.append(list(to_color(c) if c is not None else default_color(idx)))
+        return res
+    return [list(to_color(c)) for c in v]
