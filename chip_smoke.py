@@ -85,12 +85,34 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    visual bit for bit, intensity visuals within one gray level and equal on
    >= 99.9% of pixels); one HTTP POST of the phantom as ``.nii.gz``
    answered as ``.nii.gz``, against the in-process result.
-9. One JSON line with every kernel (the batch-8, bucket and visual figures
-   and launches per batch, per bucket scan and per saved result beside the
-   main path's), then the card line, then the device line.
+9. DICOM, zip and the CLI at full width: the seed-7 phantom written by
+   this script as 400 slice files, explicit VR little endian and JPEG
+   Lossless (selection value 1, encoded here in numpy), with
+   ImagePositionPatient, ImageOrientationPatient, PixelSpacing and rescale
+   slope / intercept; (1) ``read_image`` of both series with the native
+   host library: seconds, slices per second, the array bit for bit the
+   phantom's and the geometry equal to the NRRD read's; (2) every other
+   syntax on the committed fixtures (tests/fixtures/dicom/: RLE, deflate,
+   JPEG baseline and extended, JPEG-LS lossless and near, JPEG 2000 5/3
+   and 9/7) and 4 slices of each full series: the native decode against
+   the Python path (the codec wrappers forced to None), bit for bit, ms
+   per slice each; (3) ``TS2D.predict`` of the JPEG Lossless series at
+   'exact' and 'fast', batching off: launches (prefilter 2, fused block 80
+   fast / 0 exact), blocking seconds (median of 5, the read included)
+   beside the NRRD file's, masks equal to the NRRD read's; (4)
+   ``python -m totalsegmentator2d_tpu_torch.serve`` on 127.0.0.1, stopped
+   by this script: the series zipped (input_format=zip) and as one legacy
+   multi-frame file (input_format=dcm), request seconds, masks equal to
+   the solo result; (5) the CLI on a folder with one series subdirectory
+   and one NRRD: two cases, no error.
+10. One JSON line with every kernel (the batch-8, bucket and visual
+   figures and launches per batch, per bucket scan and per saved result
+   beside the main path's), then the card line, then the device line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
-CUDA toolkit; imports nothing of the JAX package.
+CUDA toolkit; imports nothing of the JAX package. It reaches no network:
+the server and the CLI read the packaged model registry (``--no-fetch``)
+and find the models in the local database.
 """
 
 import sys
@@ -103,9 +125,11 @@ if not torch.cuda.is_available():
 
 import contextlib  # noqa: E402
 import gc  # noqa: E402
+import heapq  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
+import struct  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -1371,7 +1395,6 @@ def png_pixels(path):
     """The pixels of a PNG the port wrote, decoded without PIL: the
     signature, IHDR / IDAT / IEND with their CRCs, 8-bit gray or RGB, filter
     0 on every row."""
-    import struct
     import zlib
     with open(path, 'rb') as f:
         data = f.read()
@@ -1601,6 +1624,446 @@ def io_and_visuals(db, scan, host_build_s):
     return launches
 
 
+# -- 9. DICOM, zip and the CLI -------------------------------------------------
+
+TS_EXPLICIT = '1.2.840.10008.1.2.1'
+TS_JPEG_LL_SV1 = '1.2.840.10008.1.2.4.70'
+CT_IMAGE_STORAGE = '1.2.840.10008.5.1.4.1.1.2'
+UID_ROOT = '1.2.826.0.1.3680043.10.1138'   # this script's objects
+FIXTURES = os.path.join(ROOT, 'tests', 'fixtures', 'dicom')
+FIXTURE_NAMES = ('rle', 'deflate', 'jpeg-baseline8', 'jpeg-extended12',
+                 'jpegls-lossless', 'jpegls-near', 'j2k-53', 'j2k-97')
+JPEG_PRECISION = 16
+
+
+def dicom_element(group, elem, vr, value):
+    """One data element, explicit VR little endian; text padded to even
+    length with a space (UI with a NUL), as PS3.5 6.2 says."""
+    if isinstance(value, str):
+        value = value.encode('ascii')
+    if len(value) % 2:
+        value += b'\0' if vr in (b'UI', b'OB', b'OW') else b' '
+    head = struct.pack('<HH', group, elem) + vr
+    if vr in (b'OB', b'OW', b'SQ', b'UN', b'UT'):
+        return head + b'\0\0' + struct.pack('<I', len(value)) + value
+    return head + struct.pack('<H', len(value)) + value
+
+
+def dicom_ds(*values):
+    return '\\'.join(repr(float(v)) for v in values)
+
+
+def encapsulated(frames):
+    """Encapsulated PixelData (PS3.5 A.4): OB of undefined length, an empty
+    Basic Offset Table item, one fragment per frame, the delimiter."""
+    out = [struct.pack('<HH', 0x7FE0, 0x0010) + b'OB\0\0'
+           + struct.pack('<I', 0xFFFFFFFF), struct.pack('<HHI', 0xFFFE,
+                                                        0xE000, 0)]
+    for fr in frames:
+        fr = fr + b'\0' if len(fr) % 2 else fr
+        out += [struct.pack('<HHI', 0xFFFE, 0xE000, len(fr)), fr]
+    out.append(struct.pack('<HHI', 0xFFFE, 0xE0DD, 0))
+    return b''.join(out)
+
+
+def dicom_file(path, ts, instance, position, frames=None, pixels=None,
+               nframes=1, dz=None, spacing_xy=(0.78, 0.78), shape=(512, 512)):
+    """A CT Image file: the file meta group, the patient geometry
+    (ImagePositionPatient, ImageOrientationPatient, PixelSpacing), 12 bits
+    stored in 16 with rescale slope 1 / intercept -1024, and the pixels:
+    native (``pixels``, bytes) or encapsulated (``frames``). More than one
+    frame makes a legacy multi-frame file (NumberOfFrames,
+    SpacingBetweenSlices)."""
+    sop = f'{UID_ROOT}.2.{instance}'
+    meta_body = (dicom_element(0x0002, 0x0001, b'OB', b'\0\1')
+                 + dicom_element(0x0002, 0x0002, b'UI', CT_IMAGE_STORAGE)
+                 + dicom_element(0x0002, 0x0003, b'UI', sop)
+                 + dicom_element(0x0002, 0x0010, b'UI', ts)
+                 + dicom_element(0x0002, 0x0012, b'UI', UID_ROOT + '.0'))
+    meta = dicom_element(0x0002, 0x0000, b'UL',
+                         struct.pack('<I', len(meta_body))) + meta_body
+    rows, cols = shape
+    body = [dicom_element(0x0008, 0x0016, b'UI', CT_IMAGE_STORAGE),
+            dicom_element(0x0008, 0x0018, b'UI', sop),
+            dicom_element(0x0008, 0x0060, b'CS', 'CT'),
+            dicom_element(0x0018, 0x0050, b'DS', dicom_ds(1.25))]
+    if dz is not None:
+        body.append(dicom_element(0x0018, 0x0088, b'DS', dicom_ds(dz)))
+    body += [dicom_element(0x0020, 0x000D, b'UI', UID_ROOT + '.3'),
+             dicom_element(0x0020, 0x000E, b'UI', UID_ROOT + '.4'),
+             dicom_element(0x0020, 0x0013, b'IS', str(instance)),
+             dicom_element(0x0020, 0x0032, b'DS', dicom_ds(*position)),
+             dicom_element(0x0020, 0x0037, b'DS', dicom_ds(1, 0, 0, 0, 1, 0)),
+             dicom_element(0x0028, 0x0002, b'US', struct.pack('<H', 1)),
+             dicom_element(0x0028, 0x0004, b'CS', 'MONOCHROME2')]
+    if nframes > 1:
+        body.append(dicom_element(0x0028, 0x0008, b'IS', str(nframes)))
+    body += [dicom_element(0x0028, 0x0010, b'US', struct.pack('<H', rows)),
+             dicom_element(0x0028, 0x0011, b'US', struct.pack('<H', cols)),
+             # PixelSpacing is (row, column) = (y, x)
+             dicom_element(0x0028, 0x0030, b'DS',
+                           dicom_ds(spacing_xy[1], spacing_xy[0])),
+             dicom_element(0x0028, 0x0100, b'US', struct.pack('<H', 16)),
+             dicom_element(0x0028, 0x0101, b'US', struct.pack('<H', 12)),
+             dicom_element(0x0028, 0x0102, b'US', struct.pack('<H', 11)),
+             dicom_element(0x0028, 0x0103, b'US', struct.pack('<H', 0)),
+             dicom_element(0x0028, 0x1052, b'DS', '-1024'),
+             dicom_element(0x0028, 0x1053, b'DS', '1')]
+    body.append(encapsulated(frames) if frames is not None
+                else dicom_element(0x7FE0, 0x0010, b'OW', pixels))
+    with open(path, 'wb') as f:
+        f.write(b'\0' * 128 + b'DICM' + meta + b''.join(body))
+
+
+def huffman_lengths(counts):
+    """Code lengths of a Huffman code for the symbols with counts > 0, with
+    one reserved symbol of count 1 beside them so that no code is all ones
+    (T.81 K.2); None when a code would pass 16 bits."""
+    heap = [(int(c), i, (i,)) for i, c in enumerate(counts) if c > 0]
+    heap.append((1, len(counts), (len(counts),)))  # the reserved symbol
+    heapq.heapify(heap)
+    lengths = np.zeros(len(counts) + 1, np.int64)
+    while len(heap) > 1:
+        c1, i1, s1 = heapq.heappop(heap)
+        c2, i2, s2 = heapq.heappop(heap)
+        lengths[list(s1 + s2)] += 1
+        heapq.heappush(heap, (c1 + c2, min(i1, i2), s1 + s2))
+    return None if lengths.max() > 16 else lengths[:-1]
+
+
+def jpegll_encode(plane):
+    """One (rows, cols) uint16 plane as a JPEG Lossless codestream (T.81
+    process 14, selection value 1: each sample predicted by its left
+    neighbour, the first column by the sample above), with a Huffman table
+    built from this plane's difference categories, in numpy."""
+    rows, cols = plane.shape
+    v = plane.astype(np.int64)
+    pred = np.empty_like(v)
+    pred[:, 1:] = v[:, :-1]
+    pred[1:, 0] = v[:-1, 0]
+    pred[0, 0] = 1 << (JPEG_PRECISION - 1)
+    d = (v - pred).ravel()  # in (-2^16, 2^16): taken modulo 2^16 below
+    d = np.where(d >= 32768, d - 65536, np.where(d < -32768, d + 65536, d))
+    ssss = np.frexp(np.abs(d).astype(np.float64))[1].astype(np.int64)
+    # category 16 is the one difference 32768 (= -32768), with no extra bits
+    extra = np.where(ssss == 16, 0, np.where(d > 0, d, d + (1 << ssss) - 1))
+    counts = np.bincount(ssss, minlength=17)
+    lengths = huffman_lengths(counts)
+    if lengths is None:  # a flat 5-bit code: 17 symbols, none all ones
+        lengths = np.full(17, 5)
+    codes = np.zeros(17, np.int64)
+    code, order = 0, []
+    for n in range(1, 17):
+        for sym in np.flatnonzero(lengths == n):
+            codes[sym] = code
+            code += 1
+            order.append(int(sym))
+        code <<= 1
+    n_extra = np.where(ssss == 16, 0, ssss)
+    nbits = lengths[ssss] + n_extra
+    value = (codes[ssss] << n_extra) | extra
+    ends = np.cumsum(nbits)
+    total = int(ends[-1])
+    owner = np.repeat(np.arange(d.size), nbits)
+    k = np.arange(total) - np.repeat(ends - nbits, nbits)
+    bits = ((value[owner] >> (nbits[owner] - 1 - k)) & 1).astype(np.uint8)
+    pad = (-total) % 8
+    packed = np.packbits(np.concatenate([bits, np.ones(pad, np.uint8)]))
+    ff = np.flatnonzero(packed == 0xFF)
+    data = np.insert(packed, ff + 1, 0).tobytes()  # byte stuffing
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack('>H', len(payload) + 2) \
+            + payload
+
+    dht = seg(0xC4, bytes([0x00]) + bytes(int((lengths == n).sum())
+                                          for n in range(1, 17))
+              + bytes(order))
+    sof = seg(0xC3, bytes([JPEG_PRECISION]) + struct.pack('>HH', rows, cols)
+              + bytes([1, 1, 0x11, 0]))
+    sos = seg(0xDA, bytes([1, 1, 0x00, 1, 0, 0]))
+    return b'\xff\xd8' + dht + sof + sos + data + b'\xff\xd9'
+
+
+def write_series(root, scan, ts):
+    """The scan as one slice file per z plane (stored value = HU + 1024),
+    encoded on 8 threads; returns the seconds it took and the JPEG
+    codestreams (None for native pixels)."""
+    from concurrent.futures import ThreadPoolExecutor
+    os.makedirs(root, exist_ok=True)
+    stored = (scan.array.astype(np.int32) + 1024).astype(np.uint16)
+    sx, sy, sz = scan.spacing
+
+    def one(z):
+        frame = jpegll_encode(stored[z]) if ts == TS_JPEG_LL_SV1 else None
+        kw = dict(frames=[frame]) if frame is not None \
+            else dict(pixels=stored[z].tobytes())
+        dicom_file(os.path.join(root, f'ct{z:04d}.dcm'), ts, z + 1,
+                   (0.0, 0.0, z * sz), spacing_xy=(sx, sy),
+                   shape=stored.shape[1:], **kw)
+        return frame
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        frames = list(pool.map(one, range(stored.shape[0])))
+    return time.perf_counter() - t0, (frames if frames[0] is not None
+                                      else None)
+
+
+def same_geometry(a, b):
+    return (tuple(a.spacing) == tuple(b.spacing)
+            and tuple(a.origin) == tuple(b.origin)
+            and np.array_equal(np.asarray(a.direction), np.asarray(b.direction)))
+
+
+def geometry_note(a, b):
+    return (f'spacing {tuple(a.spacing)} / {tuple(b.spacing)}, origin '
+            f'{tuple(a.origin)} / {tuple(b.origin)}, direction equal '
+            f'{np.array_equal(np.asarray(a.direction), np.asarray(b.direction))}')
+
+
+def dicom_reads(series, nrrd_img, scan):
+    """9.1: read_image of both full series with the native library."""
+    from totalsegmentator2d_tpu_torch.io import native
+    if not native.native_available():
+        raise SystemExit('the native host library is not available')
+    for name, path in series.items():
+        read_image(path)  # warm: the decode pool and the file cache
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_image(path)
+            times.append(time.perf_counter() - t0)
+        t = float(np.median(times))
+        n = img.array.shape[0]
+        equal = (img.array.dtype == scan.array.dtype
+                 and np.array_equal(img.array, scan.array))
+        geo = same_geometry(img, nrrd_img)
+        print(f'read_image of the {name} series ({n} files, '
+              f'{sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 2**20:.1f} MiB): '
+              f'median of 3 {t:.3f} s (runs {[round(x, 3) for x in times]}), '
+              f'{n / t:.1f} slices/s; array bit for bit {equal}; geometry '
+              f'equal to the NRRD read {geo} ({geometry_note(img, nrrd_img)})')
+        if not equal:
+            raise SystemExit(f'the {name} series does not read as the phantom')
+        if not geo:
+            raise SystemExit(f'the {name} series geometry differs from the '
+                             f'NRRD read')
+
+
+def decode_ms(fn, n=3):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times)) * 1e3
+
+
+def dicom_syntaxes(series):
+    """9.2: each syntax, the native decode against the Python path (the
+    wrappers forced to None in this phase), bit for bit, ms per slice."""
+    from totalsegmentator2d_tpu_torch.io import dicom
+    cases = [(n, [os.path.join(FIXTURES, f'{n}.dcm')]) for n in FIXTURE_NAMES]
+    for name, path in series.items():
+        files = sorted(os.listdir(path))
+        pick = [files[i] for i in np.linspace(0, len(files) - 1, 4).astype(int)]
+        cases.append((f'{name} series', [os.path.join(path, f) for f in pick]))
+    with np.load(os.path.join(FIXTURES, 'decoded.npz')) as z:
+        stored = {n: z[n] for n in FIXTURE_NAMES}
+
+    def decode(paths):
+        return np.stack([np.stack([f['array'] for f in
+                                   dicom.read_dicom_file(p)['frames']])
+                         for p in paths])
+
+    rows = []
+    for name, paths in cases:
+        nat, nat_ms = decode_ms(lambda: decode(paths))
+        with native_off():
+            py, py_ms = decode_ms(lambda: decode(paths), n=1 if 'series'
+                                  in name else 3)
+        equal = nat.dtype == py.dtype and np.array_equal(nat, py)
+        ref = stored.get(name)
+        ref_ok = ref is None or np.array_equal(nat[0], ref)
+        shape = 'x'.join(map(str, nat.shape[-2:]))
+        rows.append(name)
+        print(f'{name}: {len(paths)} slice(s) of {shape}, native '
+              f'{nat_ms / len(paths):.3f} ms/slice, Python '
+              f'{py_ms / len(paths):.3f} ms/slice; native = Python bit for '
+              f'bit {equal}'
+              + ('' if ref is None else f'; = the reference decode {ref_ok}'))
+        if not (equal and ref_ok):
+            raise SystemExit(f'{name}: the native and Python decodes differ')
+    return rows
+
+
+def dicom_predicts(db, series_dir, nrrd_path, fused_per_scan):
+    """9.3: TS2D.predict of the JPEG Lossless series at both precisions,
+    batching off: launches, blocking seconds (median of 5, the read
+    included), the masks against the NRRD read's (1.0: 9.1 found the
+    geometry bit-equal). Returns the exact masks."""
+    masks = {}
+    for precision in ('exact', 'fast'):
+        expect = {'bspline_prefilter': 2,
+                  'fused_norm_act_conv': fused_per_scan
+                  if precision == 'fast' else 0}
+        with TS2D(key='ts2d-v9-flagship', use_remote=False, local=db,
+                  batching=False,
+                  param=FAST if precision == 'fast' else None) as tool:
+            reset_launches()
+            seg = tool.predict(series_dir).get_segmentation().array
+            torch.cuda.synchronize()
+            launches = read_launches()
+            ref = tool.predict(nrrd_path).get_segmentation().array
+            agree = float((seg == ref).mean()) if seg.shape == ref.shape \
+                else 0.0
+            dcm_s, dcm_runs = median_s(lambda: tool.predict(series_dir))
+            nrrd_s, nrrd_runs = median_s(lambda: tool.predict(nrrd_path))
+        print(f'TS2D.predict of the JPEG Lossless series ({precision}): '
+              f'launches {launches}; blocking median of 5 {dcm_s:.4f} s '
+              f'(runs {dcm_runs}), the NRRD file {nrrd_s:.4f} s (runs '
+              f'{nrrd_runs}); masks against the NRRD read {agree:.6f}')
+        if launches != expect:
+            raise SystemExit(f'DICOM predict launches {launches}, expected '
+                             f'{expect}')
+        if agree < 1.0:
+            raise SystemExit(f'DICOM/NRRD mask agreement {agree} < 1.0')
+        masks[precision] = seg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return masks['exact']
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def dicom_server(db, series_dir, frames, shape, solo_seg):
+    """9.4: ts2d-torch-serve (python -m ...serve) on 127.0.0.1: the JPEG
+    Lossless series zipped (input_format=zip), and its codestreams as one
+    legacy multi-frame file (NumberOfFrames, SpacingBetweenSlices; a single
+    slice is a one-channel 2-D image, which the two-channel CT models
+    refuse) as input_format=dcm; each mask against the solo one."""
+    import signal
+    import urllib.error
+    import urllib.request
+    import zipfile
+    zpath = os.path.join(WORK, 'series.zip')
+    with zipfile.ZipFile(zpath, 'w') as zf:  # stored: JPEG is compressed
+        for name in sorted(os.listdir(series_dir)):
+            zf.write(os.path.join(series_dir, name), f'study/ct/{name}')
+    mf = os.path.join(WORK, 'multiframe.dcm')
+    dicom_file(mf, TS_JPEG_LL_SV1, 1, (0.0, 0.0, 0.0), frames=frames,
+               nframes=len(frames), dz=1.25, shape=shape)
+    port = free_port()
+    log = open(os.path.join(WORK, 'serve.log'), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'totalsegmentator2d_tpu_torch.serve',
+         '--local', db, '--model', 'ts2d-v9-flagship', '--port', str(port),
+         '--no-fetch'], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise SystemExit(f'the server exited with {proc.returncode}')
+            try:
+                with urllib.request.urlopen(
+                        f'http://127.0.0.1:{port}/health', timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit('the server did not come up in 300 s')
+            time.sleep(0.5)
+        print(f'ts2d-torch-serve up on 127.0.0.1:{port} in '
+              f'{time.perf_counter() - t0:.1f} s')
+        for fmt, path in (('zip', zpath), ('dcm', mf)):
+            with open(path, 'rb') as f:
+                body = f.read()
+            req = urllib.request.Request(
+                f'http://127.0.0.1:{port}/predict?input_format={fmt}',
+                data=body, method='POST')
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, payload = r.status, r.read()
+            except urllib.error.HTTPError as ex:
+                raise SystemExit(f'the {fmt} POST answered {ex.code}: '
+                                 f'{ex.read()[:500]}')
+            wall = time.perf_counter() - t0
+            out = os.path.join(WORK, f'resp_{fmt}.seg.nrrd')
+            with open(out, 'wb') as f:
+                f.write(payload)
+            seg = read_image(out).array
+            agree = float((seg == solo_seg).mean()) \
+                if seg.shape == solo_seg.shape else 0.0
+            print(f'POST input_format={fmt} ({len(body) / 2**20:.1f} MiB): '
+                  f'status {status} in {wall:.3f} s; agreement with the solo '
+                  f'mask {agree:.6f}')
+            if status != 200 or agree < 1.0:
+                raise SystemExit(f'the {fmt} POST failed or disagrees')
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        log.close()
+    print(f'the server stopped (exit {proc.returncode})')
+
+
+def dicom_cli(db, series_dir, nrrd_path):
+    """9.5: python -m totalsegmentator2d_tpu_torch on a study folder that
+    holds one series subdirectory and one NRRD: two cases, no error."""
+    study = os.path.join(WORK, 'study')
+    os.makedirs(study)
+    os.symlink(series_dir, os.path.join(study, 'series'))
+    os.symlink(nrrd_path, os.path.join(study, 'ct.nrrd'))
+    out = os.path.join(WORK, 'cli_out')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'totalsegmentator2d_tpu_torch', '-i', study,
+         '-o', out, '--local', db, '--model', 'ts2d-v9-flagship',
+         '--no-fetch'], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    expect = sorted(f'{n}{s}.nrrd' for n in ('ct', 'series')
+                    for s in ('.seg', '_max', '_mean'))
+    print(f'CLI on a study folder (a series subdirectory and an NRRD): exit '
+          f'{proc.returncode} in {wall:.1f} s; wrote {files}')
+    if proc.returncode != 0 or files != expect or 'Traceback' in proc.stderr:
+        raise SystemExit(f'the CLI failed on the study folder:\n'
+                         f'{proc.stderr[-3000:]}')
+
+
+def dicom_phase(db, scan, fused_per_scan):
+    """Phase 9."""
+    from totalsegmentator2d_tpu_torch.io import write_image
+    phase('DICOM, zip and the CLI: the phantom as explicit VR and JPEG '
+          'Lossless series')
+    series = {'explicit VR': os.path.join(WORK, 'dicom_explicit'),
+              'JPEG Lossless': os.path.join(WORK, 'dicom_jpegll')}
+    for (name, path), ts in zip(series.items(), (TS_EXPLICIT, TS_JPEG_LL_SV1)):
+        seconds, frames = write_series(path, scan, ts)
+        print(f'wrote the {name} series in {seconds:.1f} s')
+    nrrd_path = os.path.join(WORK, 'scan.nrrd')
+    write_image(scan, nrrd_path)
+    dicom_reads(series, read_image(nrrd_path), scan)
+    dicom_syntaxes(series)
+    solo = dicom_predicts(db, series['JPEG Lossless'], nrrd_path,
+                          fused_per_scan)
+    dicom_server(db, series['JPEG Lossless'], frames, scan.array.shape[1:],
+                 solo)
+    dicom_cli(db, series['JPEG Lossless'], nrrd_path)
+
+
 def main():
     shutil.rmtree(WORK, ignore_errors=True)
     smi, host_build_s = device_info()
@@ -1625,6 +2088,7 @@ def main():
                                                     fused_per_scan)
     del scans, arrs
     per_save = io_and_visuals(db, scan, host_build_s)
+    dicom_phase(db, scan, fused_per_scan)
     kernels = [prefilter, fused]
     for k in kernels:
         name = k['name']

@@ -188,7 +188,7 @@ def test_cli_on_cpu(model_root, tmp_path, monkeypatch):
     monkeypatch.setattr(sys, 'argv', [
         'ts2d-torch', '-i', asset_path('sample_s0521.nrrd'), '-o',
         str(tmp_path), '--model', KEY, '--local', model_root,
-        '--device', 'cpu', '--silent'])
+        '--device', 'cpu', '--silent', '--no-fetch'])
     ts2d_entry_point()
     assert bspline_prefilter_cuda.launches == before
     assert sorted(os.listdir(tmp_path)) == [
@@ -204,7 +204,7 @@ def test_cli_visualize_on_cpu(model_root, tmp_path, monkeypatch):
     monkeypatch.setattr(sys, 'argv', [
         'ts2d-torch', '-i', asset_path('sample_s0521.nrrd'), '-o',
         str(tmp_path), '--model', KEY, '--local', model_root,
-        '--device', 'cpu', '--silent', '--visualize'])
+        '--device', 'cpu', '--silent', '--visualize', '--no-fetch'])
     ts2d_entry_point()
     assert bspline_prefilter_cuda.launches == before
     assert sorted(os.listdir(tmp_path)) == [
@@ -219,9 +219,16 @@ def test_device_default_needs_cuda(model_root, monkeypatch):
         TS2D(key=KEY, use_remote=False, local=model_root)
 
 
-def test_not_ported_options_raise(model_root):
-    with pytest.raises(NotImplementedError, match='remote'):
-        TS2D(key=KEY, local=model_root, device='cpu')
+def test_not_ported_options_raise(model_root, tmp_path):
+    """The remote registry is ported (the default use_remote=True loads a
+    local model through it); what TS2D still refuses is a raster input,
+    which names its slice."""
+    png = tmp_path / 'x.png'
+    png.write_bytes(b'\0' * 16)
+    with TS2D(key=KEY, local=model_root, device='cpu',
+              fetch_remote=False) as tool:
+        with pytest.raises(NotImplementedError, match='raster input slice'):
+            tool.predict(str(png))
 
 
 def _predict_both(root, param=None):

@@ -294,12 +294,23 @@ def test_sibling_datafile_still_reads(tmp_path):
     ('x.dcm', 'DICOM'), ('x.zip', 'zip'), ('x.png', 'raster input'),
     ('x.tif', 'raster input')])
 def test_later_slices_raise(tmp_path, name, slice_):
+    """Raster inputs still raise, naming their slice. DICOM files, series
+    directories and zipped series are read now: on garbage bytes the port
+    raises what the reference package raises (tests/test_torch_dicom.py
+    holds the reads themselves)."""
     p = tmp_path / name
     p.write_bytes(b'\0' * 16)
-    with pytest.raises(NotImplementedError, match=f'the {slice_} slice'):
-        port_io.read_image(str(p))
-    with pytest.raises(NotImplementedError, match='the DICOM slice'):
-        port_io.read_image(str(tmp_path))  # a directory: a DICOM series
+    if slice_ == 'raster input':
+        with pytest.raises(NotImplementedError, match=f'the {slice_} slice'):
+            port_io.read_image(str(p))
+    paths = [str(tmp_path)] + ([str(p)] if slice_ != 'raster input' else [])
+    for path in paths:  # a directory is a DICOM series
+        with pytest.raises(Exception) as ref:
+            jax_io.read_image(path)
+        with pytest.raises(Exception) as ours:
+            port_io.read_image(path)
+        assert type(ours.value).__name__ == type(ref.value).__name__
+        assert str(ours.value) == str(ref.value)
     with pytest.raises(ValueError, match='Unsupported'):
         port_io.write_image(MedicalImage(array=np.zeros((2, 2), np.uint8)),
                             str(tmp_path / 'x.jpg'))

@@ -3,11 +3,15 @@ imports jax or the reference package ``totalsegmentator2d_tpu``.
 
 Checked twice: statically (every import statement in the sources), and at
 run time in a fresh interpreter whose import system refuses ``jax``,
-``jaxlib`` and ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
-starts with the same letters): every port module imports, chip_smoke.py
-imports, and a small predict runs on the CPU. The native host library the
-port loads is its own, built into ``totalsegmentator2d_tpu_torch/build/``,
-never the reference package's ``_native/libts2dio.so``."""
+``jaxlib``, ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
+starts with the same letters) and ``requests`` (the port downloads with
+urllib): every port module imports, chip_smoke.py imports, a small predict
+runs on the CPU, and a JPEG Lossless DICOM series and a zipped series read
+through the native codecs. The native host library the port loads is its
+own, built into ``totalsegmentator2d_tpu_torch/build/``, never the
+reference package's ``_native/libts2dio.so``: the child records every file
+it opens and every library it loads (audit hooks), and none lies under the
+reference package's ``_native/``."""
 
 import ast
 import os
@@ -67,11 +71,19 @@ import importlib, pkgutil, sys
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu'):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu',
+                                  'requests'):
             raise ImportError(f'blocked import: {name}')
         return None
 
 sys.meta_path.insert(0, Blocker())
+touched = []
+
+def audit(event, args):
+    if event in ('open', 'ctypes.dlopen') and args and args[0]:
+        touched.append(str(args[0]))
+
+sys.addaudithook(audit)
 import torch
 import totalsegmentator2d_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]
@@ -86,7 +98,12 @@ with TS2D(key='ts2d-v9-iso', use_remote=False, local=sys.argv[1],
           device='cpu') as tool:
     seg = tool.predict(sys.argv[2]).get_segmentation()
 assert seg.ncomponents == 5, seg
-leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu')]
+import numpy as np
+from totalsegmentator2d_tpu_torch.io import read_image
+assert np.array_equal(read_image(sys.argv[3]).array,
+                      read_image(sys.argv[4]).array)
+leaked = [m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'totalsegmentator2d_tpu', 'requests')]
 assert not leaked, leaked
 import os
 from totalsegmentator2d_tpu_torch.io import native
@@ -97,16 +114,38 @@ with open('/proc/self/maps') as f:
 assert not [p for p in libs if 'libts2dio' in p and not p.startswith(
     os.path.join(BUILD_DIR, 'libts2dio-'))], libs
 assert [p for p in libs if p.startswith(os.path.join(BUILD_DIR, 'libts2dio-'))], libs
+assert any('libts2dio-' in p for p in touched), touched
+reference = os.path.join(os.path.dirname(BUILD_DIR), '..',
+                         'totalsegmentator2d_tpu', '_native')
+assert not [p for p in touched if os.path.realpath(p).startswith(
+    os.path.realpath(reference))], touched
 print('OK', len(mods))
 '''
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
+    import zipfile
+
+    import numpy as np
+
+    from tests.test_017_dicom import _JPLL_SV1, write_slice
     root = str(tmp_path / 'zoo')
     build_group_set(root, model='ts2d-v9-iso', spacing=(1.2, 2.0))
+    series = tmp_path / 'series'
+    series.mkdir()
+    vol = np.random.default_rng(0).integers(-900, 1500, (4, 10, 12)).astype(
+        np.int16)
+    for i in range(4):
+        write_slice(str(series / f's{i}.dcm'), vol[i], position=(0, 0, 2.5 * i),
+                    instance=i + 1, transfer_syntax=_JPLL_SV1)
+    zp = tmp_path / 'series.zip'
+    with zipfile.ZipFile(zp, 'w') as zf:
+        for f in sorted(series.iterdir()):
+            zf.write(f, f'series/{f.name}')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, '-c', _CHILD, root, asset_path('sample_s0521.nrrd')],
+        [sys.executable, '-c', _CHILD, root, asset_path('sample_s0521.nrrd'),
+         str(series), str(zp)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith('OK')

@@ -1,8 +1,8 @@
 """The PyTorch port's HTTP server (totalsegmentator2d_tpu_torch.serve) on
 the CPU: the cases of tests/test_016_serve.py that NRRD inputs allow
 (round trip, concurrent batched requests, metrics, auth, the body cap,
-shutdown drain, timeouts), NIfTI and MetaImage in and out, and the formats
-that are not ported yet."""
+shutdown drain, timeouts), NIfTI and MetaImage in and out, DICOM in (a
+zipped series, one file) with its 400s, and the formats it refuses."""
 
 import concurrent.futures as cf
 import http.client
@@ -13,6 +13,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
+import zipfile
 
 import numpy as np
 import pytest
@@ -115,8 +116,8 @@ class TestEndpoints:
         assert _seg(body, tmp_path).dim == 2
 
     @pytest.mark.parametrize('query,code,message', [
-        ('?input_format=zip', 400, 'comes with the zip slice'),
-        ('?input_format=dcm', 400, 'comes with the DICOM slice'),
+        ('?input_format=zip', 400, 'failed to extract zip'),
+        ('?input_format=dcm', 400, 'failed to parse input image'),
         ('?input_format=exe', 400, 'unsupported input format'),
         ('?format=exe', 400, 'unsupported output format'),
         ('?format=png', 400, 'unsupported output format')])
@@ -124,8 +125,6 @@ class TestEndpoints:
         status, body, _ = _post(server, _payload(), query)
         assert status == code
         assert message in json.loads(body)['error']
-        if 'slice' in message:
-            assert 'not ported yet' in json.loads(body)['error']
 
     @pytest.fixture(scope='class')
     def nrrd_seg(self, server, tmp_path_factory):
@@ -189,6 +188,90 @@ class TestEndpoints:
                                     range(4)))
         assert all(status == 200 for status, _, _ in results)
         assert all(body == solo for _, body, _ in results)
+
+
+@pytest.fixture(scope='module')
+def dicom_case(tmp_path_factory):
+    """The sample CT as a JPEG Lossless series, zipped in a directory
+    chain with Finder junk beside it, and as one legacy multi-frame file."""
+    from tests.test_017_dicom import _JPLL_SV1, write_legacy_multiframe, \
+        write_slice
+    d = tmp_path_factory.mktemp('dicom')
+    arr = read_image(asset_path('sample_s0521.nrrd')).array
+    series = d / 'series'
+    series.mkdir()
+    for i, plane in enumerate(arr):
+        write_slice(str(series / f's{i:03d}.dcm'), plane,
+                    position=(5.0, -7.0, 10.0 + 2.5 * i), instance=i + 1,
+                    transfer_syntax=_JPLL_SV1)
+    zp = d / 'series.zip'
+    with zipfile.ZipFile(zp, 'w') as zf:
+        zf.writestr('__MACOSX/._s000.dcm', b'apple double junk')
+        for f in sorted(series.iterdir()):
+            zf.write(f, f'study/series/{f.name}')
+    mf = d / 'mf.dcm'
+    write_legacy_multiframe(str(mf), arr, position0=(5.0, -7.0, 10.0),
+                            dz=2.5)
+    return str(series), zp.read_bytes(), mf.read_bytes()
+
+
+class TestDicomInputs:
+    """input_format=zip (a zipped series, the PACS-push shape) and
+    input_format=dcm (one DICOM file), with the server's 400s."""
+
+    def test_zipped_series(self, server, dicom_case, tmp_path):
+        series, body, _ = dicom_case
+        status, payload, _ = _post(server, body, '?input_format=zip')
+        assert status == 200
+        ref = server.tool.predict(series).get_segmentation()
+        np.testing.assert_array_equal(_seg(payload, tmp_path).array,
+                                      ref.array)
+
+    def test_one_dicom_file(self, server, dicom_case, tmp_path):
+        series, _, body = dicom_case
+        status, payload, _ = _post(server, body,
+                                   '?input_format=dcm&format=nii.gz')
+        assert status == 200
+        ref = server.tool.predict(series).get_segmentation()
+        seg = _seg(payload, tmp_path, 'seg.nii.gz')
+        np.testing.assert_array_equal(seg.array, ref.array)
+
+    @pytest.mark.parametrize('case,message', [
+        ('no-series', 'zip contains no DICOM series'),
+        ('corrupt', 'failed to extract zip: Corrupt download (bad CRC)'),
+        ('traversal', 'failed to extract zip: Zip member escapes'),
+        ('member-cap', 'per-member limit 64'),
+        ('total-cap', '(limit 64)'),
+        ('not-a-zip', 'failed to extract zip'),
+        ('bad-dcm', 'failed to parse input image')])
+    def test_rejected(self, server, case, message, monkeypatch):
+        import io as _io
+
+        import totalsegmentator2d_tpu_torch.serve as serve
+        buf = _io.BytesIO()
+        with zipfile.ZipFile(buf, 'w') as zf:  # stored: offsets known
+            if case == 'no-series':
+                zf.writestr('readme.txt', 'nothing here')
+            elif case == 'traversal':
+                zf.writestr('../evil.dcm', b'x')
+            else:
+                zf.writestr('s/a.dcm', b'x' * 100)
+        body, fmt = buf.getvalue(), 'zip'
+        if case == 'corrupt':
+            raw = bytearray(body)
+            raw[body.index(b'x' * 100) + 50] ^= 0xFF  # the member's data
+            body = bytes(raw)
+        elif case == 'member-cap':
+            monkeypatch.setattr(serve, 'ZIP_MEMBER_MAX_BYTES', 64)
+        elif case == 'total-cap':
+            monkeypatch.setattr(serve, 'ZIP_MAX_TOTAL_BYTES', 64)
+        elif case == 'not-a-zip':
+            body = b'PK' + b'\0' * 30
+        elif case == 'bad-dcm':
+            body, fmt = b'\0' * 256, 'dcm'
+        status, payload, _ = _post(server, body, f'?input_format={fmt}')
+        assert status == 400
+        assert message in json.loads(payload)['error']
 
 
 class TestMetrics:
@@ -433,7 +516,8 @@ def test_main_serves_with_pad_quantum(root, monkeypatch, tmp_path):
     monkeypatch.setattr(serve.TS2DServer, 'start', recording_start)
     runner = threading.Thread(target=main, args=([
         '--model', KEY, '--local', root, '--device', 'cpu', '--port', '0',
-        '--pad-quantum', '32', '--warmup', '60x50'],), daemon=True)
+        '--no-fetch', '--pad-quantum', '32', '--warmup', '60x50'],),
+        daemon=True)
     runner.start()
     deadline = time.monotonic() + 120
     while not (servers and events) and time.monotonic() < deadline:

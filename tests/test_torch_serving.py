@@ -360,7 +360,8 @@ def test_close_stops_the_dispatcher(root):
 
 
 def _run_cli(argv, monkeypatch):
-    monkeypatch.setattr(sys, 'argv', ['ts2d-torch'] + argv)
+    # --no-fetch: the packaged registry, so no test reaches the network
+    monkeypatch.setattr(sys, 'argv', ['ts2d-torch', '--no-fetch'] + argv)
     ts2d_entry_point()
 
 

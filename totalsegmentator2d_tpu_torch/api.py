@@ -17,10 +17,12 @@ predictions coalesce into micro-batched programs of up to 8 scans
 built on these. With ``pad_quantum=N`` a fused set serves every crop
 through the bucket program of its shape bucket (inference/bucket.py).
 
+``predict`` reads NRRD, NIfTI, MetaImage and DICOM inputs (a series
+directory, one file, or a zipped series; io/__init__.py). Models come from
+the local database; with ``use_remote`` (the default) a model missing from
+it is downloaded from the registry first (inference/zoo.py).
 ``Result.save`` writes NRRD, NIfTI or MetaImage files and PNG visuals
 (``content='visual'|'all'``), the visuals rendered on the tool's device.
-Not ported yet, and raising when asked for: the remote model registry
-(``use_remote=True``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from .inference.database import decompose_model_key
+from .inference.database import URLDataBase, decompose_model_key
 from .inference.ensemble_engine import EnsembleEngine
 from .inference.model import HostedModel
 from .inference.zoo import Zoo
@@ -40,7 +42,7 @@ from .ops.annotations import combine_segmentations, set_annotation_meta
 from .ops.geometry import reduce_dimensions, reorient, restore_dimension
 from .ops.projection import project_multi
 from .ops.visual import create_visual
-from .utils.config import get_label_colors
+from .utils.config import get_label_colors, get_shared_urls
 from .utils.device import resolve_device
 from .utils.files import mkdirs
 from .utils.logging import log, warn
@@ -53,8 +55,10 @@ class TS2D:
 
     :param key: model key, resolved through the alias map and the local
         database (default 'ts2d' -> ts2d-v2-ep4000b2, all five groups)
-    :param use_remote: download from the remote registry; not ported yet,
-        so it must be False
+    :param use_remote: resolve keys through the remote registry and
+        download a model that the local database lacks
+    :param fetch_remote: refresh the registry from the upstream repository
+        (else, and on any failure, the packaged ``shared.json``)
     :param local: the local model database root (default ~/.ts2d/models)
     :param param: extra dot-key parameters merged into every model config
     :param device: ``None`` = the CUDA card (raises if there is none);
@@ -76,23 +80,21 @@ class TS2D:
     """
 
     def __init__(self, key: str = 'ts2d', use_remote: bool = True,
-                 local: Optional[str] = None, param: Optional[dict] = None,
-                 device=None, batching: bool = True,
-                 pad_quantum: Optional[int] = None):
+                 fetch_remote: bool = True, local: Optional[str] = None,
+                 param: Optional[dict] = None, device=None,
+                 batching: bool = True, pad_quantum: Optional[int] = None):
         self.device = resolve_device(device)
         if pad_quantum is not None and int(pad_quantum) < 1:
             raise ValueError('pad_quantum must be >= 1')
         self._pad_quantum = pad_quantum
-        if use_remote:
-            raise NotImplementedError(
-                'The remote model registry is not ported to the PyTorch '
-                'package yet: pass use_remote=False with a local database')
         self._batching = bool(batching)
         model_param = {'nnu.result.colors': get_label_colors()}
         if param:
             model_param.update(param)
 
-        self.zoo = Zoo(local=local)
+        remote = URLDataBase(get_shared_urls(fetch_remote)) if use_remote \
+            else False
+        self.zoo = Zoo(remote=remote, local=local)
         self.models: Dict[str, HostedModel] = {}
         # set before any model loads: a constructor that fails midway still
         # reaches __del__ -> close()
@@ -107,9 +109,12 @@ class TS2D:
             try:
                 model = self.zoo.load(id_, param=model_param)
             except Exception as ex:
+                # the cause's message rides along: a failed download names
+                # its URL
                 raise RuntimeError(
                     f'Failed to load model {id_}'
-                    + (f' (resolved from {key})' if key != id_ else '')) from ex
+                    + (f' (resolved from {key})' if key != id_ else '')
+                    + f': {ex}') from ex
             if not model.multilabel:
                 warn(f'The loaded model {id_} is not configured for '
                      f'multilabel inference - this should not be the case '

@@ -1,9 +1,10 @@
-"""Inference: the local model database and zoo, hosted models, the fused
-sliding-window ensemble engine and its micro-batcher, the per-model engine,
-and the host runtime (async runner, pipelined directory mode)."""
+"""Inference: the model databases (local, and the remote registry) and the
+zoo, hosted models, the fused sliding-window ensemble engine and its
+micro-batcher, the per-model engine, and the host runtime (async runner,
+pipelined directory mode)."""
 
 from .batching import DynamicBatcher
-from .database import FileDataBase, decompose_model_key
+from .database import FileDataBase, URLDataBase, decompose_model_key
 from .engine import InferenceEngine
 from .ensemble_engine import EnsembleEngine
 from .model import HostedModel
@@ -11,6 +12,6 @@ from .pipeline import ScanPipeline
 from .runner import AsyncRunner
 from .zoo import Zoo
 
-__all__ = ['AsyncRunner', 'DynamicBatcher', 'FileDataBase',
+__all__ = ['AsyncRunner', 'DynamicBatcher', 'FileDataBase', 'URLDataBase',
            'decompose_model_key', 'EnsembleEngine', 'HostedModel',
            'InferenceEngine', 'ScanPipeline', 'Zoo']

@@ -1,9 +1,11 @@
 """Host-side medical image IO: NRRD (``.nrrd``, ``.seg.nrrd``, ``.nhdr``),
 NIfTI (``.nii``, ``.nii.gz``) and MetaImage (``.mha``, ``.mhd``) read and
-write, and PNG export for visuals (the package's own encoder).
+write, DICOM read (a directory of slice files or one ``.dcm`` / ``.dicom``
+/ ``.ima`` file, io/dicom.py, and a ``.zip`` holding one series), and PNG
+export for visuals (the package's own encoder).
 
-DICOM (files, directories and zipped series) and raster inputs (png, bmp,
-tif) are not ported yet and raise ``NotImplementedError``.
+Raster inputs (png, bmp, tif) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,12 +18,15 @@ import numpy as np
 
 from .image import (MedicalImage, image_from_array, is_label_dtype,  # noqa: F401
                     is_label_image)
-from . import metaimage, nifti, nrrd
+from . import dicom, metaimage, nifti, nrrd
 
 SUPPORTED_EXTENSIONS = ('nrrd', 'nhdr', 'nii', 'nii.gz', 'mha', 'mhd')
 
-_DICOM_EXTENSIONS = ('dcm', 'dicom', 'ima')
 _RASTER_EXTENSIONS = ('png', 'bmp', 'tif', 'tiff')
+
+#: the declared decompressed size a zipped series may have: far above any
+#: real series, far below a zip bomb
+ZIP_MAX_TOTAL_BYTES = 8 << 30
 
 
 def _ext(path: str) -> str:
@@ -31,23 +36,28 @@ def _ext(path: str) -> str:
     return base.rsplit('.', 1)[-1] if '.' in base else ''
 
 
-def _not_ported(path: str, what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} ({path!r}) is not ported to the PyTorch package yet: it '
-        f'comes with the {slice_} slice (supported: '
-        f'{", ".join(SUPPORTED_EXTENSIONS)})')
-
-
 def read_image(path: str) -> MedicalImage:
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     ext = _ext(path)
-    if os.path.isdir(path) or ext in _DICOM_EXTENSIONS:
-        raise _not_ported(path, 'DICOM', 'DICOM')
+    if os.path.isdir(path) or '.' + ext in dicom.DICOM_EXTENSIONS:
+        # a directory is a DICOM slice series (one case); a file may be
+        # multi-frame
+        return dicom.read_dicom_series(path)
     if ext == 'zip':
-        raise _not_ported(path, 'A zipped DICOM series', 'zip')
+        # a zipped DICOM slice series (one case): extracted with the CRC,
+        # traversal and declared-size guards, then the series inside read
+        import tempfile
+        from ..inference.database import extract_zip
+        with tempfile.TemporaryDirectory(prefix='ts2d-zip-') as tmp:
+            extract_zip(path, tmp, max_total_bytes=ZIP_MAX_TOTAL_BYTES)
+            return dicom.read_dicom_series(dicom.resolve_series_root(tmp))
     if ext in _RASTER_EXTENSIONS:
-        raise _not_ported(path, 'A raster input', 'raster input')
+        raise NotImplementedError(
+            f'A raster input ({path!r}) is not ported to the PyTorch package '
+            f'yet: it comes with the raster input slice (supported: '
+            f'{", ".join(SUPPORTED_EXTENSIONS)}, DICOM series directories, '
+            f'dcm, dicom, ima and zip)')
     if ext in ('nrrd', 'nhdr'):
         return nrrd.read(path)
     if ext in ('nii', 'nii.gz'):

@@ -1,15 +1,19 @@
 """Bindings of the package's native host library (``csrc/ts2dio.cc``).
 
-The gzip/zlib payloads of NRRD, NIfTI and MetaImage and the fused MAX +
-MEAN host projection of an int16 CT run in C through ctypes. The library
-is built with the host C++ compiler and zlib at first use
-(:func:`~..ops.cuda.build.host_library`, into the package's ``build/``).
-Where it cannot be built (no C++ compiler or zlib headers), Python's
-``gzip``/``zlib`` and numpy give the same bytes and values, slower; a
-warning says so once.
+The gzip/zlib payloads of NRRD, NIfTI and MetaImage, the fused MAX + MEAN
+host projection of an int16 CT and the serial hot loops of the DICOM
+codecs (JPEG Lossless, sequential DCT, JPEG-LS, JPEG 2000) run in C
+through ctypes. The library is built with the host C++ compiler and zlib
+at first use (:func:`~..ops.cuda.build.host_library`, into the package's
+``build/``). Where it cannot be built (no C++ compiler or zlib headers),
+Python's ``gzip``/``zlib``, numpy and each codec's Python path give the
+same bytes and values, slower; a warning says so once. Each codec wrapper
+then returns None (``j2k_t1_block`` False), which sends its caller down
+the Python path.
 
 ``ctypes.CDLL`` releases the GIL for every call, so a projection on the
-caller's thread runs beside the micro-batcher's dispatcher thread.
+caller's thread runs beside the micro-batcher's dispatcher thread, and the
+slices of a DICOM series decode in parallel on the series pool's threads.
 """
 
 from __future__ import annotations
@@ -24,7 +28,13 @@ import numpy as np
 from ..utils.logging import warn
 
 #: the library version these bindings were written for (ts2dio_abi_version)
-ABI_VERSION = 1
+ABI_VERSION = 2
+
+# Threads of a file-level decode pool (io/dicom.py's series pool) set
+# ``in_file_worker`` here; nested decode stages (io/jpeg2k.py's code-block
+# pool) read it and stay serial inside such workers, so the two levels of
+# parallelism never oversubscribe the cores.
+decode_worker_local = threading.local()
 
 _lock = threading.Lock()
 _lib = None
@@ -50,6 +60,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    ll, p, i, d = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p, \
+        ctypes.c_double
+    signatures = {
+        'ts2dio_jpegll_decode_diffs': [i, ctypes.c_size_t, p, p, ll],
+        'ts2dio_jpegdct_decode_blocks': [i, ctypes.c_size_t, p, p, p, ll],
+        'ts2dio_jpegdct_reconstruct': [p, p, p, p, ll, ll, ll, ll, ll, p],
+        'ts2dio_j2k_t1_decode': [i, p, p, ll, ll, ll, ll, ll, i, i, p, p, p],
+        'ts2dio_j2k_t1_block': [i, p, p, ll, ll, ll, ll, ll, i, i, ll, d, p,
+                                ll],
+        'ts2dio_j2k_idwt53': [p, p, p, p, ll, ll, ll, ll, p],
+        'ts2dio_j2k_idwt97': [p, p, p, p, ll, ll, ll, ll, p],
+        'ts2dio_jpegls_decode': [i, ctypes.c_size_t] + [ll] * 8 + [p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ll
+        fn.argtypes = argtypes
     return lib
 
 
@@ -70,7 +97,8 @@ def _load():
                 _lib = load_library()
             except (OSError, RuntimeError) as ex:
                 warn(f'the native host library is not available ({ex}); '
-                     f'Python zlib and numpy take its place')
+                     f'Python zlib, numpy and the codecs\' Python paths '
+                     f'take its place')
             _checked = True
     return _lib
 
@@ -156,3 +184,191 @@ def project_max_mean(vol: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]
     if got != nz * nx:
         return None
     return out_max, out_mean
+
+
+# -- the DICOM codecs' hot loops ---------------------------------------------
+
+def jpegll_decode_diffs(seg: bytes, lut, count: int) -> Optional[np.ndarray]:
+    """Huffman-decode ``count`` JPEG Lossless differences from one
+    unstuffed entropy segment. ``lut`` is the 64k-entry uint32 peek table
+    of io/jpegll.py. Returns an int32 array, or None without the library
+    (jpegll.py's Python loop applies)."""
+    lib = _load()
+    if lib is None:
+        return None
+    lut = np.ascontiguousarray(lut, np.uint32)
+    out = np.empty(count, np.int32)
+    got = lib.ts2dio_jpegll_decode_diffs(seg, len(seg), lut.ctypes.data,
+                                         out.ctypes.data, count)
+    if got != count:
+        from .jpegll import JpegError
+        raise JpegError('Truncated entropy segment (stream ended '
+                        'mid-sample)' if got == -4 else
+                        'Invalid Huffman code in entropy data')
+    return out
+
+
+def jpegdct_decode_blocks(seg: bytes, dc_lut, ac_lut,
+                          nblocks: int) -> Optional[np.ndarray]:
+    """Huffman-decode ``nblocks`` 8x8 coefficient blocks (zigzag order, DC
+    prediction applied) from one unstuffed sequential-DCT entropy segment.
+    ``dc_lut``/``ac_lut`` are io/jpegdct.py's 64k-entry uint32 peek
+    tables. Returns an (nblocks, 64) int32 array, or None without the
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    dc_lut = np.ascontiguousarray(dc_lut, np.uint32)
+    ac_lut = np.ascontiguousarray(ac_lut, np.uint32)
+    out = np.zeros((nblocks, 64), np.int32)
+    got = lib.ts2dio_jpegdct_decode_blocks(
+        seg, len(seg), dc_lut.ctypes.data, ac_lut.ctypes.data,
+        out.ctypes.data, nblocks)
+    if got != nblocks:
+        from .jpegll import JpegError
+        raise JpegError('Invalid Huffman code in entropy data'
+                        if got == -2 else
+                        'AC run past end of block' if got == -3 else
+                        'Truncated entropy segment (stream ended '
+                        'mid-block)' if got == -4 else
+                        f'native JPEG decode failed (code {got})')
+    return out
+
+
+def jpegdct_reconstruct(coefs, q, zigzag, m, bw: int, bh: int, rows: int,
+                        cols: int, precision: int) -> Optional[np.ndarray]:
+    """Dequantize, de-zigzag, 2-D IDCT, level-shift and reassemble all of
+    a sequential-DCT image's blocks. ``coefs`` is the (nblocks, 64) int32
+    output of the entropy decoder; ``q``/``zigzag``/``m`` are the caller's
+    quantizer row, zigzag map and orthonormal IDCT matrix (the numpy path's
+    constants). Returns the (rows, cols) uint8/uint16 image, or None
+    without the library (or when ``coefs`` has the wrong shape, which the
+    numpy path then reports)."""
+    lib = _load()
+    if lib is None:
+        return None
+    coefs = np.ascontiguousarray(coefs, np.int32)
+    if coefs.shape != (bw * bh, 64):
+        return None
+    q = np.ascontiguousarray(q, np.uint16)
+    zigzag = np.ascontiguousarray(zigzag, np.int32)
+    m = np.ascontiguousarray(m, np.float64)
+    out = np.empty((rows, cols), np.uint8 if precision == 8 else np.uint16)
+    got = lib.ts2dio_jpegdct_reconstruct(
+        coefs.ctypes.data, q.ctypes.data, zigzag.ctypes.data, m.ctypes.data,
+        bw, bh, rows, cols, precision, out.ctypes.data)
+    return out if got == rows * cols else None
+
+
+def _j2k_segments(segments):
+    data = b''.join(d for d, _ in segments)
+    seg_lens = np.array([len(d) for d, _ in segments], np.int64)
+    seg_passes = np.array([n for _, n in segments], np.int64)
+    return data, seg_lens, seg_passes
+
+
+def _j2k_error(got: int):
+    from .jpeg2k import Jpeg2kError
+    return Jpeg2kError(
+        'More coding passes than bit planes' if got == -2 else
+        'Segmentation symbol mismatch (corrupt entropy data)'
+        if got == -3 else f'native Tier-1 decode failed (code {got})')
+
+
+def j2k_t1_decode(segments, w: int, h: int, style: int, start_plane: int,
+                  sig_tab, sign_lut):
+    """Run a JPEG 2000 code block's Tier-1 coding passes. ``segments`` is
+    the [(bytes, n_passes), ...] list of io/jpeg2k.py's _BlockDecoder.run;
+    ``sig_tab`` the 75-entry uint8 significance-context row of the block's
+    orientation; ``sign_lut`` the (9, 2) uint8 sign table. Returns (mag,
+    lastp, signs) arrays, or None without the library. Raises Jpeg2kError
+    on corrupt streams, as the Python loop does."""
+    lib = _load()
+    if lib is None:
+        return None
+    data, seg_lens, seg_passes = _j2k_segments(segments)
+    sig_tab = np.ascontiguousarray(sig_tab, np.uint8)
+    sign_lut = np.ascontiguousarray(sign_lut, np.uint8)
+    mag = np.zeros((h, w), np.int32)
+    lastp = np.zeros((h, w), np.int32)
+    signs = np.zeros((h, w), np.uint8)
+    got = lib.ts2dio_j2k_t1_decode(
+        data, seg_lens.ctypes.data, seg_passes.ctypes.data, len(segments),
+        w, h, style, start_plane, sig_tab.tobytes(), sign_lut.tobytes(),
+        mag.ctypes.data, lastp.ctypes.data, signs.ctypes.data)
+    if got < 0:
+        raise _j2k_error(got)
+    return mag, lastp, signs
+
+
+def j2k_t1_block(segments, w: int, h: int, style: int, start_plane: int,
+                 sig_tab, sign_lut, reversible: bool, delta: float,
+                 dst: np.ndarray) -> bool:
+    """One-call code-block decode: the Tier-1 passes and the midpoint
+    reconstruction (and, irreversible, the dequantization by ``delta``),
+    written into ``dst``, a 2-D view into the band's coefficients (int64
+    reversible, float64 otherwise; rows contiguous). Returns True, or False
+    without the library or for a view it cannot take (the caller falls
+    back to j2k_t1_decode or the Python loop). Raises Jpeg2kError on
+    corrupt streams."""
+    lib = _load()
+    if lib is None:
+        return False
+    want = np.int64 if reversible else np.float64
+    if (dst.dtype != want or dst.ndim != 2
+            or dst.strides[1] != dst.itemsize
+            or dst.strides[0] % dst.itemsize):
+        return False
+    data, seg_lens, seg_passes = _j2k_segments(segments)
+    sig_tab = np.ascontiguousarray(sig_tab, np.uint8)
+    sign_lut = np.ascontiguousarray(sign_lut, np.uint8)
+    got = lib.ts2dio_j2k_t1_block(
+        data, seg_lens.ctypes.data, seg_passes.ctypes.data, len(segments),
+        w, h, style, start_plane, sig_tab.tobytes(), sign_lut.tobytes(),
+        1 if reversible else 0, float(delta), dst.ctypes.data,
+        dst.strides[0] // dst.itemsize)
+    if got < 0:
+        raise _j2k_error(got)
+    return True
+
+
+def j2k_idwt_level(ll, hl, lh, hh, x0: int, y0: int, x1: int, y1: int,
+                   reversible: bool) -> Optional[np.ndarray]:
+    """One 2-D inverse-DWT synthesis level (T.800 Annex F): interleave the
+    four subbands of the region [x0, x1) x [y0, y1) and run the 5/3 (int64)
+    or 9/7 (float64) lifting, bit for bit as io/jpeg2k.py's _idwt_level
+    (the library builds with -ffp-contract=off). Returns the (h, w) array,
+    or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    dt = np.int64 if reversible else np.float64
+    ll, hl, lh, hh = (np.ascontiguousarray(a, dt) for a in (ll, hl, lh, hh))
+    out = np.empty((y1 - y0, x1 - x0), dt)
+    fn = lib.ts2dio_j2k_idwt53 if reversible else lib.ts2dio_j2k_idwt97
+    got = fn(ll.ctypes.data, hl.ctypes.data, lh.ctypes.data, hh.ctypes.data,
+             x0, y0, x1, y1, out.ctypes.data)
+    return out if got == (y1 - y0) * (x1 - x0) else None
+
+
+def jpegls_decode(data: bytes, w: int, h: int, maxval: int, near: int,
+                  t1: int, t2: int, t3: int,
+                  reset: int) -> Optional[np.ndarray]:
+    """Decode one JPEG-LS scan's entropy data (everything after SOS) with
+    io/jpegls.py's resolved coding parameters. Returns an (h, w) int32
+    array, or None without the library (the Python scan loop applies).
+    Raises JpegLsError on corrupt streams, as the Python loop does."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.zeros((h, w), np.int32)
+    got = lib.ts2dio_jpegls_decode(data, len(data), w, h, maxval, near, t1,
+                                   t2, t3, reset, out.ctypes.data)
+    if got != h * w:
+        from .jpegls import JpegLsError
+        raise JpegLsError(
+            'Truncated entropy segment' if got == -4 else
+            'Run length exceeds the line' if got == -5 else
+            'Corrupt entropy data (runaway Golomb code)' if got == -6 else
+            f'native JPEG-LS decode failed (code {got})')
+    return out

@@ -12,15 +12,18 @@ GET  /health            -> {"status": "ok", "models": [...]}
 GET  /labels            -> {"<model id>": {"1": "heart", ...}, ...}
 GET  /metrics           -> request/latency counters and the micro-batcher's
                            occupancy (JSON)
-POST /predict           body: an image file (NRRD, NIfTI or MetaImage;
-                        input_format=dcm/zip answer 400 "not ported yet")
-     query params:      input_format=nrrd|nii|nii.gz|mha|mhd, collapse=0|1,
-                        format=nrrd|nii|nii.gz|mha
+POST /predict           body: an image file (NRRD, NIfTI, MetaImage or one
+                        DICOM file, incl. Enhanced multi-frame), or a zipped
+                        DICOM slice series (input_format=zip, the PACS-push
+                        shape)
+     query params:      input_format=nrrd|nii|nii.gz|mha|mhd|dcm|zip,
+                        collapse=0|1, format=nrrd|nii|nii.gz|mha
      response:          merged multilabel segmentation in ``format``; label
                         metadata rides in X-TS2D-Labels (JSON)
 
 Start:  python -m totalsegmentator2d_tpu_torch.serve --local DB
         [--model KEY] [--port 8008] [--device cuda|cpu]
+        [--no-remote] [--no-fetch]   as the CLI's
         [--warmup HxW ...]   run the programs of these projection shapes
                              once before serving
         [--pad-quantum N]    serve every crop through the bucket program
@@ -31,7 +34,9 @@ token on everything but /health and is strongly recommended for
 non-loopback ``--host`` binds (the server warns otherwise; there is no TLS
 here, front it with a reverse proxy); ``--request-timeout`` answers 504
 past a per-predict wall-clock budget; ``--max-body-mb`` caps request
-bodies (413); shutdown (SIGINT / ``stop()``) drains in-flight predicts,
+bodies (413), and a zipped series is refused (400) when its declared
+decompressed size passes 8 GiB in all or ZIP_MEMBER_MAX_BYTES in one
+member; shutdown (SIGINT / ``stop()``) drains in-flight predicts,
 new ones answer 503, before returning.
 """
 
@@ -50,16 +55,22 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from .io import ZIP_MAX_TOTAL_BYTES
 from .utils.logging import log, warn
 
 
 #: default request-body ceiling (512 MiB covers any realistic CT upload)
 DEFAULT_MAX_BODY = 512 * 1024 * 1024
 
-INPUT_FORMATS = ('nrrd', 'nii', 'nii.gz', 'mha', 'mhd')
+#: 'dcm' is one DICOM file (incl. Enhanced multi-frame); 'zip' is a zipped
+#: DICOM slice series
+INPUT_FORMATS = ('nrrd', 'nii', 'nii.gz', 'mha', 'mhd', 'dcm', 'zip')
 OUTPUT_FORMATS = ('nrrd', 'nii', 'nii.gz', 'mha')
-#: input formats of the reference server that later slices of the port bring
-_NOT_PORTED_INPUTS = {'dcm': 'DICOM', 'zip': 'zip'}
+
+#: per-member declared-size cap for zipped-series uploads (a DICOM slice
+#: is at most a few MiB; one member declaring more than this is an attack,
+#: not a scan); the total is io.ZIP_MAX_TOTAL_BYTES
+ZIP_MEMBER_MAX_BYTES = 1 << 30
 
 
 def _error(status: int, message: str):
@@ -219,11 +230,6 @@ class TS2DServer:
         out_fmt = query.get('format', ['nrrd'])[0]
         collapse = query.get('collapse', ['0'])[0] in ('1', 'true')
         # both are interpolated into paths below: a strict whitelist
-        if ext in _NOT_PORTED_INPUTS:
-            return _error(400, f'input format {ext} is not ported yet: it '
-                               f'comes with the {_NOT_PORTED_INPUTS[ext]} '
-                               f'slice (this server reads '
-                               f'{", ".join(INPUT_FORMATS)})')
         if ext not in INPUT_FORMATS:
             return _error(400, f'unsupported input format {ext}')
         if out_fmt not in OUTPUT_FORMATS:
@@ -233,6 +239,22 @@ class TS2DServer:
             in_path = os.path.join(tmp, f'input.{ext}')
             with open(in_path, 'wb') as f:
                 f.write(body)
+            if ext == 'zip':
+                from .inference.database import extract_zip
+                from .io.dicom import DicomError, resolve_series_root
+                series = os.path.join(tmp, 'series')
+                os.mkdir(series)
+                try:
+                    # CRC, traversal and declared-size guards
+                    extract_zip(in_path, series,
+                                max_total_bytes=ZIP_MAX_TOTAL_BYTES,
+                                max_member_bytes=ZIP_MEMBER_MAX_BYTES)
+                except Exception as ex:
+                    return _error(400, f'failed to extract zip: {ex}')
+                try:
+                    in_path = resolve_series_root(series)
+                except DicomError:
+                    return _error(400, 'zip contains no DICOM series')
             try:
                 img = read_image(in_path)
             except Exception as ex:
@@ -424,6 +446,12 @@ def main(argv=None) -> None:
     parser.add_argument('--local', type=str, default=None,
                         help='the local model database root (defaults to '
                              '~/.ts2d/models)')
+    parser.add_argument('--no-remote', action='store_true',
+                        help='disable remote model download: models must '
+                             'be in the local database')
+    parser.add_argument('--no-fetch', action='store_true',
+                        help='use the packaged shared.json, not the latest '
+                             'registry of the upstream repository')
     parser.add_argument('--device', type=str, default=None,
                         help="where the models run: 'cuda' (the default; an "
                              "error without a CUDA device) or 'cpu'")
@@ -470,7 +498,8 @@ def main(argv=None) -> None:
         warmup_shapes.append((h, w))
 
     key = args.model or get_default_model()
-    with TS2D(key=key, use_remote=False, local=args.local,
+    with TS2D(key=key, use_remote=not args.no_remote,
+              fetch_remote=not args.no_fetch, local=args.local,
               device=args.device, pad_quantum=args.pad_quantum) as tool:
         fused = tool._fused
         if args.batch_linger_ms:

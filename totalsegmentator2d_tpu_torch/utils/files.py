@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 
 
 def read_json(path: str):
@@ -14,6 +15,24 @@ def read_json(path: str):
 def mkdirs(path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def rmdirs(path: str) -> None:
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def removeall(path: str) -> None:
+    if os.path.isdir(path):
+        rmdirs(path)
+    elif os.path.exists(path):
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+
+def isemptydir(path: str) -> bool:
+    return os.path.isdir(path) and not os.listdir(path)
 
 
 def get_home_dir() -> str:
