@@ -14,9 +14,12 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    chunked plain version bit for bit and agree with the sequential one
    (rtol 1e-5 / atol 1e-6), the reference formula and scipy; it is timed
    at the main path's pair of launches, at the batch-8 pair, at the
-   bucket program's canvas, (448, 512, 2) and its batch-8 stack, and at the
-   visuals' resample of a (400, 512) image along axes 1 and 0 (phase 8),
-   beside two empty launches (the launch floor). The fused block is checked and timed
+   bucket program's canvas, (448, 512, 2) and its batch-8 stack, at the
+   visuals' resample of a (400, 512) image along axes 1 and 0 (phase 8), and
+   at training's three call sites (phase 10): the preprocessing case
+   (448, 384, 2) along axes 0, 1, augmentation's warp stack (6, 256, 256, 2)
+   and one low-resolution level (4, 128, 128) along axes 1, 2, beside two
+   empty launches (the launch floor). The fused block is checked and timed
    at the 11 flagship shapes at N = 16 (the main path's forward batch) and
    N = 128 (the batched serving program's: 8 scans), per scan and per
    batch. Times are eager per call (CUDA events over back-to-back calls,
@@ -105,9 +108,28 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    multi-frame file (input_format=dcm), request seconds, masks equal to
    the solo result; (5) the CLI on a folder with one series subdirectory
    and one NRRD: two cases, no error.
-10. One JSON line with every kernel (the batch-8, bucket and visual
-   figures and launches per batch, per bucket scan and per saved result
-   beside the main path's), then the card line, then the device line.
+10. Training on the card at full width: (a) ``Trainer`` with the flagship
+   group model (6 stages, features 32..512, patch 256^2, 2 channels) and
+   the vertebrae group's 26 labels, batch 16, deep supervision and the
+   augmentation recipe on, on 4 synthetic cases preprocessed on the card
+   (``preprocess_case``: 2 prefilter launches each), in fp32 and bf16: s/step
+   (median of 5 after 2 warm-up steps), peak memory, prefilter launches per
+   step (the launch counts set to 0 just before the 5 steps and read just
+   after; the low-resolution levels' share counted around each level, the
+   rest the warp stack's), and the loss falling over 20 steps on one repeated batch with
+   augment off; (b) the same weights (``init_params_np``) and batch on the
+   GPU and the CPU at the reduced ``SMALL`` architecture, 3 steps, augment
+   off: losses within rtol 1e-3; (c) ``ts2d-torch-train`` as a subprocess
+   on a raw nnU-Net PNG dataset this script writes with its own encoder (8
+   cases, 2 channels as 16-bit ``_0000.png`` / ``_0001.png``, label maps,
+   2 folds x 20 steps at batch 8, ``--augment --pack``): the holdout Dice
+   of each fold, the exported model loaded back through the port's ``Zoo``
+   predicting on the card at 'exact' and 'fast' (the fused block's
+   launches), and ``eval.evaluate`` of one prediction against its labels.
+11. One JSON line with every kernel (the batch-8, bucket, visual and
+   training figures and launches per batch, per bucket scan, per saved
+   result, per training step and per preprocessed case beside the main
+   path's), then the card line, then the device line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package. It reaches no network:
@@ -172,6 +194,16 @@ VISUAL = (400, 512)
 # reduced architecture for the GPU-vs-CPU comparison
 SMALL = dict(n_stages=4, features=(8, 16, 32, 32), patch=(64, 64),
              spacing=(1.5, 1.5))
+# training (phase 10): a 2-channel training case at clinical spacing ((x, y)
+# mm), resampled to the plan's 1.5 mm by preprocessing; the flagship patch
+# at batch 16, where round(16 * 0.36) = 6 samples warp as one stack; one
+# low-resolution level, 4 planes at zoom 0.5, as the cubic up-resize's
+# prefilter sees them
+TRAIN_CASE = (448, 384, 2)
+TRAIN_SPACING = (1.1, 0.9)
+TRAIN_BATCH = 16
+WARP_STACK = (round(TRAIN_BATCH * 0.36), 256, 256, 2)
+LOWRES_STACK = (4, 128, 128)
 
 
 def phase(name):
@@ -323,6 +355,14 @@ def check_prefilter():
     # (the slab path), then axis 0 (the tile path)
     xv = torch.randn(VISUAL, generator=gen).cuda()
     compare(compare(xv, 1), 0)
+    # training (phase 10): the preprocessing case along axes 0, 1, the warp
+    # stack and one low-res level along axes 1, 2
+    xp = torch.randn(TRAIN_CASE, generator=gen).cuda()
+    compare(compare(xp, 0), 1)
+    xw = torch.randn(WARP_STACK, generator=gen).cuda()
+    compare(compare(xw, 1), 2)
+    xl = torch.randn(LOWRES_STACK, generator=gen).cuda()
+    compare(compare(xl, 1), 2)
     for shape, axis in PREFILTER_EDGES:
         # the float64 reference loop is slow at 20000 samples: the plain
         # versions hold that one
@@ -337,7 +377,7 @@ def check_prefilter():
     # library yardstick: the dense n x n prefilter matrix (the filter of the
     # identity) applied by one batched matmul per axis, fp32 without TF32
     mats = {n: PF.bspline_prefilter_plain(torch.eye(n, device='cuda'), 0)
-            for n in (400, 448, 512)}
+            for n in (128, 256, 384, 400, 448, 512)}
 
     def library():
         a = torch.matmul(mats[400], x.view(1, 400, 1024))
@@ -359,6 +399,18 @@ def check_prefilter():
         a = torch.matmul(xv, mats[512].T)
         return torch.matmul(mats[400], a)
 
+    def library_train_preprocess():
+        a = torch.matmul(mats[448], xp.view(1, 448, 768))
+        return torch.matmul(mats[384], a.view(448, 384, 2))
+
+    def library_train_warp():
+        a = torch.matmul(mats[256], xw.view(6, 256, 512))
+        return torch.matmul(mats[256], a.view(1536, 256, 2)).view(xw.shape)
+
+    def library_train_lowres():
+        a = torch.matmul(mats[128], xl)
+        return torch.matmul(a, mats[128].T)
+
     def empty_pair():  # the launch floor: two empty kernels
         torch.cuda._sleep(0)
         torch.cuda._sleep(0)
@@ -379,6 +431,11 @@ def check_prefilter():
         torch.testing.assert_close(library_visual(),
                                    pair(xv, (1, 0), PF.prefilter_axis)(),
                                    rtol=1e-4, atol=1e-5)
+        for lib, t, axes in ((library_train_preprocess, xp, (0, 1)),
+                             (library_train_warp, xw, (1, 2)),
+                             (library_train_lowres, xl, (1, 2))):
+            torch.testing.assert_close(lib(), pair(t, axes, PF.prefilter_axis)(),
+                                       rtol=1e-4, atol=1e-5)
         floor_ms, floor_dev = cuda_ms(empty_pair, 200), device_ms(empty_pair, 50)
         for name, t, axes, lib, passes in (
                 ('main', x, (0, 1), library, ((400, 1024), (512, 800))),
@@ -386,7 +443,13 @@ def check_prefilter():
                 ('bucket', xk, (0, 1), library_bucket, ((448, 1024), (512, 896))),
                 ('bucket_batch8', xkb, (1, 2), library_bucket_b8,
                  ((448, 8192), (512, 7168))),
-                ('visual', xv, (1, 0), library_visual, ((512, 400), (400, 512)))):
+                ('visual', xv, (1, 0), library_visual, ((512, 400), (400, 512))),
+                ('train_preprocess', xp, (0, 1), library_train_preprocess,
+                 ((448, 768), (384, 896))),
+                ('train_warp', xw, (1, 2), library_train_warp,
+                 ((256, 3072), (256, 3072))),
+                ('train_lowres', xl, (1, 2), library_train_lowres,
+                 ((128, 512), (128, 512)))):
             kernel = pair(t, axes, PF.bspline_prefilter_cuda)
             bound, by = prefilter_bound_ms(passes)
             res[name] = {'ms': cuda_ms(kernel, 200),
@@ -402,7 +465,10 @@ def check_prefilter():
                  'batch8': '(8, 400, 512, 2) axes 1, 2',
                  'bucket': '(448, 512, 2) axes 0, 1',
                  'bucket_batch8': '(8, 448, 512, 2) axes 1, 2',
-                 'visual': '(400, 512) axes 1, 0'}[name]
+                 'visual': '(400, 512) axes 1, 0',
+                 'train_preprocess': f'{TRAIN_CASE} axes 0, 1',
+                 'train_warp': f'{WARP_STACK} axes 1, 2',
+                 'train_lowres': f'{LOWRES_STACK} axes 1, 2'}[name]
         print(f'prefilter {name} pair {where}: kernel {r["ms"]:.4f} ms eager, {r["device_ms"]:.4f} ms device '
               f'({r["bound_ms"] / r["device_ms"]:.1%} of bound); plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
@@ -421,7 +487,9 @@ def check_prefilter():
             **{name: {k: res[name][k] for k in
                       ('ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms',
                        'bound_by')}
-               for name in ('batch8', 'bucket', 'bucket_batch8', 'visual')}}
+               for name in ('batch8', 'bucket', 'bucket_batch8', 'visual',
+                            'train_preprocess', 'train_warp',
+                            'train_lowres')}}
 
 
 def fused_launches(arch, in_channels=2):
@@ -2064,6 +2132,320 @@ def dicom_phase(db, scan, fused_per_scan):
     dicom_cli(db, series['JPEG Lossless'], nrrd_path)
 
 
+# -- 10. training on the card -------------------------------------------------
+
+VERTEBRAE = 26   # the vertebrae group's labels
+
+
+def vertebrae_case(shape, seed):
+    """A 2-channel (max, mean) training case: a spine column of VERTEBRAE
+    stacked label bands over soft tissue, with noise; (image (H, W, 2)
+    float32, labelmap (H, W) uint8 in 0..VERTEBRAE)."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    lm = np.zeros((h, w), np.uint8)
+    x0 = int(w * (0.40 + 0.05 * rng.random()))
+    x1 = x0 + max(8, w // 6)
+    y0, band = int(h * 0.05), max(2, int(h * 0.9) // VERTEBRAE)
+    for v in range(VERTEBRAE):
+        lm[y0 + v * band + 1:y0 + (v + 1) * band, x0:x1] = v + 1
+    noise = rng.standard_normal((h, w, 2)).astype(np.float32)
+    img = np.stack([200 + 700 * (lm > 0) + 40 * noise[..., 0],
+                    80 + 10 * lm + 20 * noise[..., 1]], -1)
+    return img.astype(np.float32), lm
+
+
+def one_hot(lm):
+    return np.stack([lm == v for v in range(1, VERTEBRAE + 1)],
+                    -1).astype(np.uint8)
+
+
+def flagship_train_spec():
+    from totalsegmentator2d_tpu_torch.models.plans import ModelSpec
+    n = FLAGSHIP['n_stages']
+    plans = {'configurations': {'2d': {
+        'patch_size': list(FLAGSHIP['patch']),
+        'spacing': list(FLAGSHIP['spacing']),
+        'normalization_schemes': ['ZScoreNormalization'] * 2,
+        'use_mask_for_norm': [False, False],
+        'architecture': {'arch_kwargs': {
+            'n_stages': n, 'features_per_stage': list(FLAGSHIP['features']),
+            'kernel_sizes': [[3, 3]] * n,
+            'strides': [[1, 1]] + [[2, 2]] * (n - 1),
+            'n_conv_per_stage': [2] * n, 'n_conv_per_stage_decoder': [2] * (n - 1),
+            'conv_bias': True, 'norm_op_kwargs': {'eps': 1e-05, 'affine': True},
+            'nonlin_kwargs': {'inplace': True}}}}}}
+    dataset = {'channel_names': {'0': 'max', '1': 'mean'},
+               'labels': {'background': 0, **{f'vertebrae_{v}': v for v in
+                                              range(1, VERTEBRAE + 1)}},
+               'file_ending': '.nrrd', 'multilabel': True}
+    spec = parse_model_spec(plans, dataset)
+    assert isinstance(spec, ModelSpec)
+    return spec
+
+
+def train_timed(spec, cases, dtype):
+    """Phase 10a at one compute dtype: 2 warm-up steps, then 5 steps with
+    the launch counts set to 0 just before and read just after; the
+    low-resolution levels' share of the prefilter's launches is counted
+    around each level (the rest are the warp stack's). Returns (s/step
+    median, peak GiB, {call site: prefilter launches per step}, losses)."""
+    from totalsegmentator2d_tpu_torch.training import augment as AUG
+    from totalsegmentator2d_tpu_torch.training import (PatchSampler,
+                                                       TrainConfig, Trainer)
+    cfg = TrainConfig(total_steps=100, augment=True, deep_supervision=True,
+                      compute_dtype=dtype)
+    sampler = PatchSampler(cases, FLAGSHIP['patch'], seed=1)
+    batches = [sampler.sample_batch(TRAIN_BATCH, pack_targets=True)
+               for _ in range(7)]
+    tr = Trainer(spec.arch, cfg, seed=0)
+    for b in batches[:2]:
+        tr.step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, lowres = [], [], [0]
+    level = AUG.lowres_level
+
+    def counted_level(x, z):
+        before = PF.bspline_prefilter_cuda.launches
+        out = level(x, z)
+        lowres[0] += PF.bspline_prefilter_cuda.launches - before
+        return out
+
+    AUG.lowres_level = counted_level
+    try:
+        reset_launches()
+        for b in batches[2:]:
+            t0 = time.perf_counter()
+            loss = float(tr.step(b))        # waits for the step
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+        ran = read_launches()
+    finally:
+        AUG.lowres_level = level
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all():
+        raise SystemExit(f'training ({dtype}): losses {losses}')
+    sites = {'train_warp': (ran['bspline_prefilter'] - lowres[0]) / len(times),
+             'train_lowres': lowres[0] / len(times)}
+    if sites['train_warp'] != 2 or ran['fused_norm_act_conv']:
+        raise SystemExit(f'training ({dtype}): kernel launches {ran}, '
+                         f'of which low-res {lowres[0]}')
+    return float(np.median(times)), peak, sites, losses
+
+
+def loss_falls(spec, cases, dtype, steps=20):
+    """20 steps on one repeated batch, augment off: the loss must fall."""
+    from totalsegmentator2d_tpu_torch.training import (PatchSampler,
+                                                       TrainConfig, Trainer)
+    batch = PatchSampler(cases, FLAGSHIP['patch'], seed=2).sample_batch(
+        TRAIN_BATCH, pack_targets=True)
+    tr = Trainer(spec.arch, TrainConfig(total_steps=steps,
+                                        compute_dtype=dtype), seed=0)
+    t0 = time.perf_counter()
+    losses = [float(tr.step(batch)) for _ in range(steps)]
+    wall = time.perf_counter() - t0
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f'training ({dtype}) loss did not fall: {losses}')
+    return losses, wall
+
+
+def train_gpu_vs_cpu(smi):
+    """Phase 10b: the SMALL architecture, the same weights (the reference's
+    host initializer) and batch on both devices, 3 steps, augment off."""
+    from totalsegmentator2d_tpu_torch.models.convert import (load_into,
+                                                             params_from_jax)
+    from totalsegmentator2d_tpu_torch.models.plans import ArchSpec
+    from totalsegmentator2d_tpu_torch.models.unet import init_params_np
+    from totalsegmentator2d_tpu_torch.training import TrainConfig, Trainer
+    n = SMALL['n_stages']
+    arch = ArchSpec(n_stages=n, features_per_stage=SMALL['features'],
+                    kernel_sizes=((3, 3),) * n,
+                    strides=((1, 1),) + ((2, 2),) * (n - 1),
+                    n_conv_per_stage=(2,) * n,
+                    n_conv_per_stage_decoder=(2,) * (n - 1), in_channels=2,
+                    out_channels=VERTEBRAE)
+    sd = params_from_jax(init_params_np(3, arch))
+    img, lm = vertebrae_case((128, 128), seed=40)
+    rng = np.random.default_rng(41)
+    batch = {'image': np.stack([img[:64, 32:96], img[64:, 32:96]]),
+             'target': np.stack([one_hot(lm[:64, 32:96]),
+                                 one_hot(lm[64:, 32:96])])}
+    batch['image'] += rng.standard_normal(batch['image'].shape).astype(np.float32)
+    batch['image'] = (batch['image'] - 300) / 300
+    losses = {}
+    for device in ('cuda', 'cpu'):
+        tr = Trainer(arch, TrainConfig(total_steps=10), seed=0, device=device)
+        load_into(tr.model, sd)
+        losses[device] = [float(tr.step(batch)) for _ in range(3)]
+        tr.close()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses['cuda'],
+                                                  losses['cpu']))
+    print(f'train GPU vs CPU (SMALL, fp32, 3 steps): losses '
+          f'{[round(v, 6) for v in losses["cuda"]]} / '
+          f'{[round(v, 6) for v in losses["cpu"]]}, max rel diff {rel:.3g} '
+          f'[{smi}]')
+    if rel > 1e-3:
+        raise SystemExit(f'training GPU/CPU losses differ by {rel} > 1e-3')
+
+
+def png_file(path, arr):
+    """This script's PNG encoder: 8- or 16-bit gray, filter 0, one IDAT."""
+    import zlib
+    arr = np.asarray(arr)
+    depth = 16 if arr.dtype == np.uint16 else 8
+    h, w = arr.shape
+    rows = arr.astype('>u2' if depth == 16 else np.uint8).reshape(h, -1)
+    raw = b''.join(b'\0' + r.tobytes() for r in rows)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, 0, 0,
+                                             0, 0))
+                + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
+
+
+def write_png_dataset(root, n_cases=8, shape=(256, 256)):
+    """An nnU-Net raw 2D dataset: 2 channels per case as 16-bit
+    _0000.png / _0001.png, a labelmap PNG per case, multilabel."""
+    os.makedirs(os.path.join(root, 'imagesTr'))
+    os.makedirs(os.path.join(root, 'labelsTr'))
+    with open(os.path.join(root, 'dataset.json'), 'w') as f:
+        json.dump({'channel_names': {'0': 'max', '1': 'mean'},
+                   'labels': {'background': 0,
+                              **{f'vertebrae_{v}': v
+                                 for v in range(1, VERTEBRAE + 1)}},
+                   'numTraining': n_cases, 'file_ending': '.png',
+                   'multilabel': True}, f)
+    for i in range(n_cases):
+        img, lm = vertebrae_case(shape, seed=50 + i)
+        for c in range(2):
+            png_file(os.path.join(root, 'imagesTr', f'case{i:02d}_{c:04d}.png'),
+                     np.clip(img[..., c] + 1024, 0, 65535).astype(np.uint16))
+        png_file(os.path.join(root, 'labelsTr', f'case{i:02d}.png'), lm)
+
+
+def train_cli():
+    """Phase 10c: ts2d-torch-train as a subprocess on a PNG dataset, then
+    the exported model through the port's Zoo on the card and eval."""
+    from totalsegmentator2d_tpu_torch.eval import evaluate
+    from totalsegmentator2d_tpu_torch.inference import Zoo
+    from totalsegmentator2d_tpu_torch.io import write_image
+    from totalsegmentator2d_tpu_torch.ops.annotations import set_annotation_meta
+    from totalsegmentator2d_tpu_torch.training import load_raw_dataset
+    data = os.path.join(WORK, 'Dataset510_vertebrae')
+    out = os.path.join(WORK, 'trained')
+    pack = os.path.join(WORK, 'share', 'vertebrae.zip')
+    write_png_dataset(data)
+    cmd = [sys.executable, '-m', 'totalsegmentator2d_tpu_torch.training.cli',
+           '-d', data, '-o', out, '--model', 'ts2d-v9-trained',
+           '--group', 'vertebrae', '--steps', '20', '--batch-size', '8',
+           '--max-patch', '256', '--folds', '2', '--log-every', '10',
+           '--augment', '--pack', pack]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or 'Traceback' in proc.stderr:
+        raise SystemExit(f'ts2d-torch-train failed ({proc.returncode}):\n'
+                         f'{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}')
+    mid = lines[-1]
+    dice = [ln for ln in lines if 'holdout Dice' in ln]
+    print(f'ts2d-torch-train (subprocess, 8 PNG cases, 2 folds x 20 steps, '
+          f'batch 8, --augment --pack): {wall:.1f} s, model {mid}')
+    for ln in dice:
+        print(f'  {ln[:160]}')
+    if len(dice) != 2 or not os.path.getsize(pack):
+        raise SystemExit('ts2d-torch-train: no holdout Dice or no zip')
+    img, seg = load_raw_dataset(data)[0][0]
+    res = {}
+    for precision in ('exact', 'fast'):
+        hosted = Zoo(remote=False, local=out).load(
+            mid, param={'nnu': {'predict': {'precision': precision}}})
+        hosted.start()
+        reset_launches()
+        t0 = time.perf_counter()
+        pred = hosted.apply(img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = read_launches()
+        hosted.stop()
+        res[precision] = pred
+        print(f'exported model through the Zoo on the card ({precision}): '
+              f'{pred.array.shape} {pred.array.dtype}, {ms:.1f} ms, '
+              f'launches {ran}')
+        if (pred.array.shape != img.array.shape[:2] + (VERTEBRAE,)
+                or (ran['fused_norm_act_conv'] > 0) != (precision == 'fast')):
+            raise SystemExit(f'exported model predict ({precision}) failed')
+    gt = MedicalImage(array=seg.array, spacing=img.spacing, is_vector=True)
+    names = {v: f'vertebrae_{v}' for v in range(1, VERTEBRAE + 1)}
+    set_annotation_meta(gt, names=names,
+                        colors={n: '#e3a81c' for n in names.values()})
+    paths = [os.path.join(WORK, n) for n in ('pred.nrrd', 'gt.nrrd')]
+    write_image(res['exact'], paths[0])
+    write_image(gt, paths[1])
+    ev = evaluate(*paths)
+    agree = float((res['exact'].array == res['fast'].array).mean())
+    print(f'eval.evaluate(pred, gt) on the card: mean Dice '
+          f'{ev["mean_dice"]:.4f} over {ev["n_labels"]} labels; fast vs '
+          f'exact mask agreement {agree:.6f}')
+    if ev['n_labels'] != VERTEBRAE or not 0 <= ev['mean_dice'] <= 1:
+        raise SystemExit(f'eval failed: {ev}')
+
+
+def training(smi):
+    """Phase 10. Returns the prefilter's launches at training's call sites:
+    per preprocessed case, and per step (bf16 run) of the warp stack and of
+    the low-resolution levels."""
+    from totalsegmentator2d_tpu_torch.training import preprocess_case
+    phase('training: the flagship group model (vertebrae, 26 labels), '
+          f'batch {TRAIN_BATCH}, deep supervision, augment on')
+    spec = flagship_train_spec()
+    cases = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(4):
+        img, lm = vertebrae_case(TRAIN_CASE[:2], seed=30 + i)
+        cases.append(preprocess_case(
+            MedicalImage(array=img, spacing=TRAIN_SPACING, is_vector=True),
+            MedicalImage(array=one_hot(lm), spacing=TRAIN_SPACING,
+                         is_vector=True), spec))
+    per_case = read_launches()['bspline_prefilter'] / 4
+    print(f'preprocess_case x4 {TRAIN_CASE} -> {cases[0][0].shape}: '
+          f'{time.perf_counter() - t0:.2f} s, prefilter {per_case:g} '
+          f'launches per case')
+    if per_case != 2:
+        raise SystemExit(f'preprocessing prefilter launches {per_case}')
+    for dtype in (None, 'bfloat16'):
+        name = dtype or 'float32'
+        step_s, peak, sites, losses = train_timed(spec, cases, dtype)
+        print(f'Trainer.step ({name}): {step_s:.4f} s/step (median of 5 after '
+              f'2 warm-up), {TRAIN_BATCH / step_s:.1f} patches/s, peak '
+              f'{peak:.2f} GiB, prefilter launches/step: warp stack '
+              f'{sites["train_warp"]:g}, low-res levels '
+              f'{sites["train_lowres"]:g}; losses '
+              f'{[round(v, 4) for v in losses]} [{smi}]')
+        falls, wall = loss_falls(spec, cases, dtype)
+        print(f'loss over 20 steps on one batch, augment off ({name}): '
+              f'{falls[0]:.4f} -> {falls[-1]:.4f} '
+              f'({wall / len(falls):.4f} s/step) [{smi}]')
+    train_gpu_vs_cpu(smi)
+    train_cli()
+    return {'train_preprocess': per_case, **sites}
+
+
 def main():
     shutil.rmtree(WORK, ignore_errors=True)
     smi, host_build_s = device_info()
@@ -2089,6 +2471,7 @@ def main():
     del scans, arrs
     per_save = io_and_visuals(db, scan, host_build_s)
     dicom_phase(db, scan, fused_per_scan)
+    train_launches = training(smi)
     kernels = [prefilter, fused]
     for k in kernels:
         name = k['name']
@@ -2102,6 +2485,8 @@ def main():
             raise SystemExit(f'{name} did not run on the main path, the '
                              f'batched serving path or the bucket paths')
     prefilter['visual']['launches'] = per_save['bspline_prefilter']
+    for key, n in train_launches.items():   # per case, per training step
+        prefilter[key]['launches'] = n
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

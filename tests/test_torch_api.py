@@ -220,14 +220,18 @@ def test_device_default_needs_cuda(model_root, monkeypatch):
 
 
 def test_not_ported_options_raise(model_root, tmp_path):
-    """The remote registry is ported (the default use_remote=True loads a
-    local model through it); what TS2D still refuses is a raster input,
-    which names its slice."""
+    """The remote registry and raster inputs are ported (the default
+    use_remote=True loads a local model through it); a raster input that
+    is not an image raises the reference's ValueError in both packages."""
     png = tmp_path / 'x.png'
     png.write_bytes(b'\0' * 16)
     with TS2D(key=KEY, local=model_root, device='cpu',
               fetch_remote=False) as tool:
-        with pytest.raises(NotImplementedError, match='raster input slice'):
+        with pytest.raises(ValueError, match='Corrupt raster image file'):
+            tool.predict(str(png))
+    with JaxTS2D(key=KEY, use_remote=False, local=model_root,
+                 batching=False) as tool:
+        with pytest.raises(ValueError, match='Corrupt raster image file'):
             tool.predict(str(png))
 
 

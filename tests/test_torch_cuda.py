@@ -20,7 +20,10 @@ batch; the volume program's projection of an int16 volume is the host's
 bit for bit, and so is the native host library's one-pass projection. The
 visuals run the prefilter kernel in their resample (two launches per
 intensity visual) and equal their CPU renders (label visuals bit for bit,
-intensity visuals within one gray level on every pixel)."""
+intensity visuals within one gray level on every pixel). Training runs it
+at its shapes (the preprocessing case, the augmentation's warp stack, a
+low-resolution level), and one augmented ``Trainer.step`` on the card
+launches it (the warp stack's two axes at least) with a finite loss."""
 
 import numpy as np
 import pytest
@@ -61,7 +64,12 @@ PREFILTER_SHAPES = [((400, 512, 2), 0), ((400, 512, 2), 1),
                     ((9, 10, 11), 2), ((5, 3, 33), 1), ((7, 9, 2), 1),
                     ((31, 45), 0), ((32, 45), 0), ((33, 1), 0),
                     ((50, 33), 0), ((3, 85, 1), 1), ((3, 85, 2), 1),
-                    ((85, 33), 0), ((3, 20000, 2), 1), ((20000,), 0)]
+                    ((85, 33), 0), ((3, 20000, 2), 1), ((20000,), 0),
+                    # training: the preprocessing case, the warp stack of 6
+                    # patches, a low-resolution level of 4 planes
+                    ((448, 384, 2), 0), ((448, 384, 2), 1),
+                    ((6, 256, 256, 2), 1), ((6, 256, 256, 2), 2),
+                    ((4, 128, 128), 1), ((4, 128, 128), 2)]
 
 
 class TestPrefilterKernel:
@@ -417,3 +425,30 @@ def test_visuals_run_the_prefilter_kernel(cuda, rng):
     np.testing.assert_array_equal(
         lab.array, create_visual(seg, labels=True, axis='coronal',
                                  device='cpu').array)
+
+
+def test_trainer_step_on_the_card(cuda, rng):
+    """One augmented Trainer.step at batch 8 (the partitioned warp of 3
+    samples): the prefilter kernel launches, the loss is finite, and the
+    weights stay fp32 on the card."""
+    from totalsegmentator2d_tpu_torch.models.plans import ArchSpec
+    from totalsegmentator2d_tpu_torch.training import TrainConfig, Trainer
+    from totalsegmentator2d_tpu_torch.training.data import pack_target_np
+    arch = ArchSpec(n_stages=4, features_per_stage=(8, 16, 32, 32),
+                    kernel_sizes=((3, 3),) * 4,
+                    strides=((1, 1), (2, 2), (2, 2), (2, 2)),
+                    n_conv_per_stage=(2,) * 4, n_conv_per_stage_decoder=(2,) * 3,
+                    in_channels=2, out_channels=5)
+    batch = {'image': rng.standard_normal((8, 64, 64, 2)).astype(np.float32),
+             'target_packed': pack_target_np(rng.random((8, 64, 64, 5)) > 0.7)}
+    for dtype in (None, 'bfloat16'):
+        tr = Trainer(arch, TrainConfig(total_steps=4, augment=True,
+                                       compute_dtype=dtype), seed=0)
+        before = PF.bspline_prefilter_cuda.launches
+        loss = tr.step(batch)
+        torch.cuda.synchronize()
+        assert PF.bspline_prefilter_cuda.launches - before >= 2
+        assert loss.is_cuda and bool(torch.isfinite(loss))
+        assert all(v.is_cuda and v.dtype == torch.float32
+                   for v in tr.params.values())
+        tr.close()

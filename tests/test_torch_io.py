@@ -294,15 +294,17 @@ def test_sibling_datafile_still_reads(tmp_path):
     ('x.dcm', 'DICOM'), ('x.zip', 'zip'), ('x.png', 'raster input'),
     ('x.tif', 'raster input')])
 def test_later_slices_raise(tmp_path, name, slice_):
-    """Raster inputs still raise, naming their slice. DICOM files, series
-    directories and zipped series are read now: on garbage bytes the port
-    raises what the reference package raises (tests/test_torch_dicom.py
-    holds the reads themselves)."""
+    """DICOM files, series directories, zipped series and raster inputs
+    (the raster input slice) are read now: on garbage bytes the port raises
+    what the reference package raises (tests/test_torch_dicom.py and
+    tests/test_torch_raster.py hold the reads themselves); a raster names
+    the same corruption, in its decoder's words."""
     p = tmp_path / name
     p.write_bytes(b'\0' * 16)
     if slice_ == 'raster input':
-        with pytest.raises(NotImplementedError, match=f'the {slice_} slice'):
-            port_io.read_image(str(p))
+        for io_ in (jax_io, port_io):
+            with pytest.raises(ValueError, match='Corrupt raster image file'):
+                io_.read_image(str(p))
     paths = [str(tmp_path)] + ([str(p)] if slice_ != 'raster input' else [])
     for path in paths:  # a directory is a DICOM series
         with pytest.raises(Exception) as ref:

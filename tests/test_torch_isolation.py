@@ -1,13 +1,16 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports jax or the reference package ``totalsegmentator2d_tpu``.
+imports jax, the reference package ``totalsegmentator2d_tpu``, Pillow,
+optax or orbax (the card's machine has none of them).
 
 Checked twice: statically (every import statement in the sources), and at
 run time in a fresh interpreter whose import system refuses ``jax``,
 ``jaxlib``, ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
-starts with the same letters) and ``requests`` (the port downloads with
-urllib): every port module imports, chip_smoke.py imports, a small predict
-runs on the CPU, and a JPEG Lossless DICOM series and a zipped series read
-through the native codecs. The native host library the port loads is its
+starts with the same letters), ``requests`` (the port downloads with
+urllib), ``PIL``, ``optax`` and ``orbax``: every port module imports (the
+training package, eval and models.export among them), chip_smoke.py
+imports, a small predict runs on the CPU, a JPEG Lossless DICOM series and
+a zipped series read through the native codecs, and a PNG reads through the
+port's own decoder. The native host library the port loads is its
 own, built into ``totalsegmentator2d_tpu_torch/build/``, never the
 reference package's ``_native/libts2dio.so``: the child records every file
 it opens and every library it loads (audit hooks), and none lies under the
@@ -27,9 +30,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'totalsegmentator2d_tpu_torch')
 
 
+_REFUSED = ('jax', 'jaxlib', 'totalsegmentator2d_tpu', 'PIL', 'optax',
+            'orbax')
+
+
 def _blocked(name: str) -> bool:
-    top = name.split('.')[0]
-    return top in ('jax', 'jaxlib', 'totalsegmentator2d_tpu')
+    return name.split('.')[0] in _REFUSED
 
 
 def _sources():
@@ -44,7 +50,9 @@ def _sources():
     ('jax', True), ('jax.numpy', True), ('jaxlib', True),
     ('totalsegmentator2d_tpu', True), ('totalsegmentator2d_tpu.io', True),
     ('totalsegmentator2d_tpu_torch', False),
-    ('totalsegmentator2d_tpu_torch.api', False), ('numpy', False)])
+    ('totalsegmentator2d_tpu_torch.api', False), ('numpy', False),
+    ('PIL.Image', True), ('optax', True), ('orbax.checkpoint', True),
+    ('totalsegmentator2d_tpu_torch.training.train', False)])
 def test_blocker_matches_exact_names(name, blocked):
     assert _blocked(name) is blocked
 
@@ -72,7 +80,7 @@ import importlib, pkgutil, sys
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu',
-                                  'requests'):
+                                  'requests', 'PIL', 'optax', 'orbax'):
             raise ImportError(f'blocked import: {name}')
         return None
 
@@ -102,8 +110,14 @@ import numpy as np
 from totalsegmentator2d_tpu_torch.io import read_image
 assert np.array_equal(read_image(sys.argv[3]).array,
                       read_image(sys.argv[4]).array)
+import totalsegmentator2d_tpu_torch.eval  # noqa: F401
+import totalsegmentator2d_tpu_torch.models.export  # noqa: F401
+import totalsegmentator2d_tpu_torch.training  # noqa: F401
+png = read_image(sys.argv[5])
+assert png.array.shape == (3, 4, 3) and png.array.dtype == np.uint8, png
 leaked = [m for m in sys.modules if m.split('.')[0] in (
-    'jax', 'jaxlib', 'totalsegmentator2d_tpu', 'requests')]
+    'jax', 'jaxlib', 'totalsegmentator2d_tpu', 'requests', 'PIL', 'optax',
+    'orbax')]
 assert not leaked, leaked
 import os
 from totalsegmentator2d_tpu_torch.io import native
@@ -142,10 +156,13 @@ def test_port_runs_with_jax_blocked(tmp_path):
     with zipfile.ZipFile(zp, 'w') as zf:
         for f in sorted(series.iterdir()):
             zf.write(f, f'series/{f.name}')
+    from totalsegmentator2d_tpu_torch.io import encode_png
+    png = tmp_path / 'x.png'
+    png.write_bytes(encode_png(np.arange(36, dtype=np.uint8).reshape(3, 4, 3)))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, '-c', _CHILD, root, asset_path('sample_s0521.nrrd'),
-         str(series), str(zp)],
+         str(series), str(zp), str(png)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith('OK')

@@ -163,6 +163,30 @@ class FileDataBase(DataBase):
         mkdirs(os.path.dirname(dst))
         shutil.copytree(src, dst, dirs_exist_ok=True)
 
+    def pack_zip(self, key: str, zip_path: str,
+                 revision: Optional[int] = None) -> str:
+        """Package one model into a registry-shape zip (the inverse of
+        :func:`extract_zip`): members are ``<model>_<group>/r###/...``
+        paths, so extracting at any database root reproduces the entry, as
+        the published models ship and :class:`URLDataBase` serves them
+        (``ts2d-torch-train --pack``). Default revision: the latest.
+        Returns ``zip_path``."""
+        if revision is None:
+            revision = self.latest(key=key)
+            if revision is None:
+                raise LookupError(f'Model {key!r} not in database')
+        src = self.resource_path(key, revision)
+        if src is None:
+            raise LookupError(f'Model {key!r} (rev {revision}) not in '
+                              f'database')
+        mkdirs(os.path.dirname(os.path.abspath(zip_path)) or '.')
+        with zipfile.ZipFile(zip_path, 'w', zipfile.ZIP_DEFLATED) as zf:
+            for root, _, files in sorted(os.walk(src)):
+                for fn in sorted(files):
+                    fp = os.path.join(root, fn)
+                    zf.write(fp, os.path.relpath(fp, self._root))
+        return zip_path
+
     def clear(self, key: Optional[str] = None, revision: Optional[int] = None):
         """Remove one model (one revision of it), or every model."""
         if self.readonly:

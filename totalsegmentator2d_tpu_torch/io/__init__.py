@@ -1,11 +1,9 @@
 """Host-side medical image IO: NRRD (``.nrrd``, ``.seg.nrrd``, ``.nhdr``),
 NIfTI (``.nii``, ``.nii.gz``) and MetaImage (``.mha``, ``.mhd``) read and
 write, DICOM read (a directory of slice files or one ``.dcm`` / ``.dicom``
-/ ``.ima`` file, io/dicom.py, and a ``.zip`` holding one series), and PNG
-export for visuals (the package's own encoder).
-
-Raster inputs (png, bmp, tif) are not ported yet and raise
-``NotImplementedError``.
+/ ``.ima`` file, io/dicom.py, and a ``.zip`` holding one series), raster
+inputs (``.png``, ``.bmp``, ``.tif``, ``.tiff``, the package's own decoders
+in io/raster.py) and PNG export for visuals (the package's own encoder).
 """
 
 from __future__ import annotations
@@ -18,11 +16,9 @@ import numpy as np
 
 from .image import (MedicalImage, image_from_array, is_label_dtype,  # noqa: F401
                     is_label_image)
-from . import dicom, metaimage, nifti, nrrd
+from . import dicom, metaimage, nifti, nrrd, raster
 
 SUPPORTED_EXTENSIONS = ('nrrd', 'nhdr', 'nii', 'nii.gz', 'mha', 'mhd')
-
-_RASTER_EXTENSIONS = ('png', 'bmp', 'tif', 'tiff')
 
 #: the declared decompressed size a zipped series may have: far above any
 #: real series, far below a zip bomb
@@ -52,18 +48,16 @@ def read_image(path: str) -> MedicalImage:
         with tempfile.TemporaryDirectory(prefix='ts2d-zip-') as tmp:
             extract_zip(path, tmp, max_total_bytes=ZIP_MAX_TOTAL_BYTES)
             return dicom.read_dicom_series(dicom.resolve_series_root(tmp))
-    if ext in _RASTER_EXTENSIONS:
-        raise NotImplementedError(
-            f'A raster input ({path!r}) is not ported to the PyTorch package '
-            f'yet: it comes with the raster input slice (supported: '
-            f'{", ".join(SUPPORTED_EXTENSIONS)}, DICOM series directories, '
-            f'dcm, dicom, ima and zip)')
     if ext in ('nrrd', 'nhdr'):
         return nrrd.read(path)
     if ext in ('nii', 'nii.gz'):
         return nifti.read(path)
     if ext in ('mha', 'mhd'):
         return metaimage.read(path)
+    if ext in raster.RASTER_EXTENSIONS:
+        # plain 2D rasters (the nnU-Net v2 2D extension set): unit spacing,
+        # identity geometry
+        return raster.read_raster(path)
     raise ValueError(f'Unsupported image format: {path}')
 
 

@@ -10,6 +10,10 @@
  - :func:`params_from_jax` carries the reference package's params pytree
    (numpy arrays; conv weights HWIO, transposed-conv weights HWOI) across,
    so both implementations can run the same weights.
+ - :func:`params_to_state_dict` is the export direction: the module's
+   weights as the nnU-Net state dict of numpy arrays (the module's own
+   names are nnU-Net's, so this is the inverse of :func:`load_into`), as
+   the reference's ``params_to_state_dict`` writes them.
  - :func:`round_to_bf16` rounds every parameter to bf16 (kept as float32
    tensors): the reference's fast ``EnsembleEngine`` stores all its
    parameters in bf16, norm affines and biases included.
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -126,3 +130,14 @@ def params_from_jax(params: dict, bf16: bool = False) -> Dict[str, torch.Tensor]
         if 'b' in sl:
             sd[f'decoder.seg_layers.{d}.bias'] = t(sl['b'])
     return round_to_bf16(sd) if bf16 else sd
+
+
+def params_to_state_dict(params: Union[torch.nn.Module, Dict[str, torch.Tensor]]
+                         ) -> Dict[str, np.ndarray]:
+    """A UNet (or its state dict) -> the nnU-Net state dict of float32
+    numpy arrays that ``checkpoint_final.pth`` holds: conv weights OIHW,
+    transposed-conv weights IOHW, keys ``encoder.stages.{s}.convs.{c}.
+    {conv,norm}.*``, ``decoder.{transpconvs,stages,seg_layers}.*``."""
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    return {k: v.detach().to('cpu', torch.float32).numpy().copy()
+            for k, v in sd.items()}

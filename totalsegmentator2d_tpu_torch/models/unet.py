@@ -11,8 +11,8 @@ fp32 statistics with the biased variance, as torch's InstanceNorm2d with
 the batched serving program runs). As in the reference package, a block has a
 norm only when the architecture has norm affines (``norm_affine``); without
 them the block is conv -> LeakyReLU. Inference reads only the last (full
-resolution) segmentation head; the deep-supervision heads are kept so that
-checkpoints load strictly, but are not run.
+resolution) segmentation head; the deep-supervision heads run when
+``deep_supervision`` is asked for (training), highest resolution first.
 
 Two compute classes, those of the reference ``forward``:
 
@@ -28,21 +28,36 @@ Two compute classes, those of the reference ``forward``:
   weights are loaded and on their device: it casts the weights to bf16
   and packs the kernel's weights once.
 
+Training runs :meth:`UNet.forward_train`: the exact class, or the
+reference's training compute dtype (bf16 conv operands with fp32
+accumulation through stock cuDNN convs, fp32 norm statistics, bf16 heads
+when ``head_dtype`` says so), by explicit casts that autograd goes
+through; the fused kernel has no backward, in either package. ``remat``
+recomputes the forward in the backward (``torch.utils.checkpoint``).
+
 :meth:`UNet.forward` takes and returns NHWC, the layout of the reference
 package's ``forward``; the engines call :meth:`UNet.forward_nchw` to stay in
 cuDNN's layout between tiles.
+
+:func:`init_params_np` is the reference's host initializer, bit for bit
+(numpy ``default_rng``, the reference's params pytree);
+:func:`init_params` draws the same He-normal weights from a
+``torch.Generator`` straight into a state dict of the module.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.cuda.fused_block import fold_stats, fused_norm_act_conv, pack_weight
 from ..utils.device import exact_numerics
@@ -146,6 +161,19 @@ class ConvNormAct(nn.Module):
             x = self.norm(x)
         return F.leaky_relu(x, self.slope)
 
+    def forward_train(self, x: torch.Tensor,
+                      cdt: Optional[torch.dtype]) -> torch.Tensor:
+        """The differentiable block: fp32 (``cdt=None``), or bf16 conv
+        operands with a bf16 output, fp32 norm statistics and bf16 storage
+        (the reference's ``_block`` with a compute dtype)."""
+        if cdt is None:
+            return self.forward(x)
+        x = _conv_bf16(F.conv2d, x, self.conv.weight.to(BF16), self.conv.bias,
+                       stride=self.conv.stride, padding=self.conv.padding)
+        if self.norm is not None:
+            x = self.norm(x.float()).to(BF16)
+        return _leaky(x, self.slope)
+
     def forward_fast(self, x: torch.Tensor) -> torch.Tensor:
         """The bf16 block: bf16 conv, fp32 norm statistics, bf16 storage."""
         x = _conv_bf16(F.conv2d, x, self.conv.weight16, self.conv.bias,
@@ -169,6 +197,12 @@ class ConvStack(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convs(x)
+
+    def forward_train(self, x: torch.Tensor,
+                      cdt: Optional[torch.dtype]) -> torch.Tensor:
+        for block in self.convs:
+            x = block.forward_train(x, cdt)
+        return x
 
     def forward_fast(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
@@ -264,6 +298,27 @@ class Decoder(nn.Module):
             x = self.stages[d](x)
         return self.seg_layers[-1](x)
 
+    def forward_train(self, skips: List[torch.Tensor],
+                      cdt: Optional[torch.dtype], deep_supervision: bool,
+                      head_dtype: Optional[torch.dtype]):
+        """The differentiable decoder; every head, highest resolution
+        first, under ``deep_supervision``, else the last one."""
+        x = skips[-1]
+        n_dec = len(self.stages)
+        heads = []
+        for d in range(n_dec):
+            tc = self.transpconvs[d]
+            if cdt is None:
+                x = tc(x)
+            else:
+                x = _conv_bf16(F.conv_transpose2d, x, tc.weight.to(BF16),
+                               tc.bias, stride=tc.stride)
+            x = torch.cat([x, skips[n_dec - d - 1].to(x.dtype)], dim=1)
+            x = self.stages[d].forward_train(x, cdt)
+            if deep_supervision or d == n_dec - 1:
+                heads.append(_head(self.seg_layers[d], x, cdt, head_dtype))
+        return heads[::-1] if deep_supervision else heads[-1]
+
     def forward_fast(self, skips: List[torch.Tensor]) -> torch.Tensor:
         x = skips[-1]
         n_dec = len(self.stages)
@@ -279,6 +334,21 @@ class Decoder(nn.Module):
         with exact_numerics():
             out = F.conv2d(x.float(), head.weight16.float())
         return out + head.bias[:, None, None]
+
+
+def _head(layer: nn.Conv2d, x: torch.Tensor, cdt: Optional[torch.dtype],
+          head_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A 1x1 segmentation head as the reference's ``_conv(...,
+    compute_dtype, out_dtype=head_dtype)``: bf16 operands under a compute
+    dtype, the output (and the bias add) in ``head_dtype`` (fp32 when
+    None)."""
+    if cdt is None:
+        out = layer(x)
+        return out if head_dtype is None else out.to(head_dtype)
+    if head_dtype == BF16:
+        return _conv_bf16(F.conv2d, x, layer.weight.to(BF16), layer.bias)
+    out = F.conv2d(x.to(BF16).float(), layer.weight.to(BF16).float())
+    return out + layer.bias[:, None, None]
 
 
 class UNet(nn.Module):
@@ -311,9 +381,42 @@ class UNet(nn.Module):
         self._fast_ready = True
         return self
 
+    def forward_train(self, x: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      deep_supervision: bool = False,
+                      head_dtype: Optional[torch.dtype] = None,
+                      remat: bool = False):
+        """The differentiable forward, (N, C_in, H, W) in: the logits
+        (N, C_out, H, W), or with ``deep_supervision`` every head, highest
+        resolution first (the reference's ``forward(params, x, spec,
+        deep_supervision, compute_dtype, head_dtype)``). ``compute_dtype``
+        None or bf16; ``remat`` keeps only the input and recomputes the
+        forward in the backward pass."""
+        if compute_dtype not in (None, BF16):
+            raise ValueError(f'compute_dtype must be None or torch.bfloat16, '
+                             f'got {compute_dtype}')
+
+        def run(t):
+            skips = []
+            for stage in self.encoder.stages:
+                t = stage.forward_train(t, compute_dtype)
+                skips.append(t)
+            out = self.decoder.forward_train(skips, compute_dtype,
+                                             deep_supervision, head_dtype)
+            return tuple(out) if deep_supervision else out
+
+        out = (torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+               if remat else run(x))
+        return list(out) if deep_supervision else out
+
     def forward_nchw(self, x: torch.Tensor,
-                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """(N, C_in, H, W) -> (N, C_out, H, W) fp32 logits."""
+                     compute_dtype: Optional[torch.dtype] = None,
+                     deep_supervision: bool = False):
+        """(N, C_in, H, W) -> (N, C_out, H, W) fp32 logits; with
+        ``deep_supervision`` the list of every head (fp32), highest
+        resolution first, through :meth:`forward_train`."""
+        if deep_supervision:
+            return self.forward_train(x, compute_dtype, deep_supervision=True)
         if compute_dtype is None:
             return self.decoder(self.encoder(x))
         if compute_dtype != BF16:
@@ -329,8 +432,86 @@ class UNet(nn.Module):
         return self.decoder.forward_fast(skips)
 
     def forward(self, x: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """(N, H, W, C_in) -> (N, H, W, C_out) logits."""
+                compute_dtype: Optional[torch.dtype] = None,
+                deep_supervision: bool = False):
+        """(N, H, W, C_in) -> (N, H, W, C_out) logits (a list of them,
+        highest resolution first, with ``deep_supervision``)."""
         out = self.forward_nchw(x.permute(0, 3, 1, 2).contiguous(),
-                                compute_dtype)
+                                compute_dtype, deep_supervision)
+        if deep_supervision:
+            return [o.permute(0, 2, 3, 1) for o in out]
         return out.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+def init_params(generator: torch.Generator, spec: ArchSpec
+                ) -> Dict[str, torch.Tensor]:
+    """A state dict of :class:`UNet` (float32, on the CPU): He-normal conv,
+    transposed-conv and head weights with std sqrt(2 / fan_in), fan_in =
+    input channels x kernel area (the reference's ``init_params``), zero
+    biases, unit norm scales; drawn from ``generator`` in module order."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, m in UNet(spec).named_modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.in_channels * math.prod(m.kernel_size)
+            sd[name + '.weight'] = torch.randn(
+                m.weight.shape, generator=generator) * math.sqrt(2.0 / fan_in)
+            if m.bias is not None:
+                sd[name + '.bias'] = torch.zeros(m.bias.shape)
+        elif isinstance(m, InstanceNorm):
+            sd[name + '.weight'] = torch.ones(m.weight.shape)
+            sd[name + '.bias'] = torch.zeros(m.bias.shape)
+    return sd
+
+
+def init_params_np(seed: int, spec: ArchSpec, dtype=np.float32) -> dict:
+    """The reference's host-side initializer (its ``init_params_np``), bit
+    for bit: the params pytree of numpy arrays (conv weights HWIO,
+    transposed-conv weights HWOI) that ``convert.params_from_jax`` turns
+    into a state dict."""
+    a = spec
+    rng = np.random.default_rng(seed)
+
+    def he(shape, fan_in):
+        return (rng.standard_normal(shape) * math.sqrt(2.0 / fan_in)).astype(dtype)
+
+    def conv_block(cin, cout, kernel):
+        kh, kw = kernel
+        p = {'conv': {'w': he((kh, kw, cin, cout), cin * kh * kw)}}
+        if a.conv_bias:
+            p['conv']['b'] = np.zeros((cout,), dtype)
+        if a.norm_affine:
+            p['norm'] = {'scale': np.ones((cout,), dtype),
+                         'bias': np.zeros((cout,), dtype)}
+        return p
+
+    enc_stages = []
+    cin = a.in_channels
+    for s in range(a.n_stages):
+        enc_stages.append([conv_block(cin if c == 0 else a.features_per_stage[s],
+                                      a.features_per_stage[s], a.kernel_sizes[s])
+                           for c in range(a.n_conv_per_stage[s])])
+        cin = a.features_per_stage[s]
+
+    transpconvs, dec_stages, seg_layers = [], [], []
+    n_dec = a.n_stages - 1
+    for d in range(n_dec):
+        enc_stage = n_dec - d
+        cin_below = a.features_per_stage[enc_stage]
+        cskip = a.features_per_stage[enc_stage - 1]
+        sh, sw = a.strides[enc_stage]
+        transpconvs.append({'w': he((sh, sw, cskip, cin_below),  # HWOI
+                                    cin_below * sh * sw),
+                            'b': np.zeros((cskip,), dtype)})
+        dec_stages.append([conv_block(2 * cskip if c == 0 else cskip, cskip,
+                                      a.kernel_sizes[enc_stage - 1])
+                           for c in range(a.n_conv_per_stage_decoder[d])])
+        seg_layers.append({'w': he((1, 1, cskip, a.out_channels), cskip),
+                           'b': np.zeros((a.out_channels,), dtype)})
+
+    return {'encoder': {'stages': enc_stages},
+            'decoder': {'transpconvs': transpconvs, 'stages': dec_stages,
+                        'seg_layers': seg_layers}}

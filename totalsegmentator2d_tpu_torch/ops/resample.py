@@ -7,13 +7,16 @@ interpolation (scipy order=3 semantics): the samples first pass through the
 B-spline prefilter (:func:`bspline_prefilter`, the CUDA kernel in
 ops/cuda/prefilter.py) to become coefficients. The device programs use
 these pieces; :func:`resample` is the image-level resample (ITK
-ResampleImageFilter semantics) of the visuals, on the card unless the
-caller names the CPU.
+ResampleImageFilter semantics) of the visuals, and :func:`resize_to_shape`
+the half-pixel resize of training's preprocessing (:func:`_resize` on
+tensors, also augmentation's low-resolution transform), on the card unless
+the caller names the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,6 +102,55 @@ def apply_separable(arr: torch.Tensor,
         out = torch.matmul(torch.movedim(arr, ax, -1), W.T)
         arr = torch.movedim(out, -1, ax)
     return arr
+
+
+# ---------------------------------------------------------------------------
+# array-level resize (the skimage / scipy zoom half-pixel convention)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, order: int, outside: str,
+                    device: torch.device) -> torch.Tensor:
+    """The (n_out, n_in) float32 weights of one resized axis, on the device:
+    input position (i + 0.5) * n_in / n_out - 0.5 of output sample i."""
+    coords = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    W = axis_weights(n_in, coords, order, outside).astype(np.float32)
+    return torch.from_numpy(W).to(device)
+
+
+def _resize(arr: torch.Tensor, shape: Tuple[int, ...], order: int,
+            outside: str, axes: Tuple[int, ...]) -> torch.Tensor:
+    """Resize ``arr`` along ``axes`` to ``shape`` on its device, in float32:
+    order 3 prefilters only the axes that change size (the CUDA kernel on
+    the card), then one full-fp32 matmul per changed axis (the reference's
+    ``_resize_jit``)."""
+    work = arr.float()
+    if order == 3:
+        work = bspline_prefilter(work, [ax for k, ax in enumerate(axes)
+                                        if arr.shape[ax] != shape[k]])
+    weights = [None if arr.shape[ax] == shape[k] else
+               _resize_weights(int(arr.shape[ax]), int(shape[k]), int(order),
+                               outside, work.device)
+               for k, ax in enumerate(axes)]
+    with exact_numerics():
+        return apply_separable(work, weights, axes)
+
+
+def resize_to_shape(arr: np.ndarray, shape: Sequence[int], order: int = 3,
+                    outside: str = 'edge',
+                    axes: Optional[Sequence[int]] = None,
+                    device=None) -> np.ndarray:
+    """skimage/zoom half-pixel resize (nnU-Net preprocessing semantics:
+    ``resize(..., order=3, mode='edge', anti_aliasing=False)``), on
+    ``device`` (None = the CUDA card, 'cpu' when asked); float32 out."""
+    if axes is None:
+        axes = tuple(range(len(shape)))
+    device = resolve_device(device)
+    with torch.inference_mode():
+        x = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        out = _resize(x, tuple(int(s) for s in shape), int(order), outside,
+                      tuple(int(a) for a in axes))
+        return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

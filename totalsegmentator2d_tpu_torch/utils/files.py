@@ -12,6 +12,11 @@ def read_json(path: str):
         return json.load(f)
 
 
+def write_json(path: str, data, indent: int = 2) -> None:
+    with open(path, 'w', encoding='utf-8') as f:
+        json.dump(data, f, indent=indent)
+
+
 def mkdirs(path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return path
