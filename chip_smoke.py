@@ -1,8 +1,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,2,11]
 
-Phases (any failure exits non-zero; the result lines print only at the end):
+``--phases`` runs a subset (phase 1 always), each phase with the inputs it
+needs, for example ``--phases 2,10`` (training) or ``--phases 2,11`` (the
+sharded programs). Phases (any failure exits non-zero; the result lines
+print only at the end):
 
 1. Device info: the card (nvidia-smi), CUDA, nvcc; builds every kernel from
    the sources in the checkout, all at once, and beside them the native host
@@ -126,10 +129,31 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    of each fold, the exported model loaded back through the port's ``Zoo``
    predicting on the card at 'exact' and 'fast' (the fused block's
    launches), and ``eval.evaluate`` of one prediction against its labels.
-11. One JSON line with every kernel (the batch-8, bucket, visual and
-   training figures and launches per batch, per bucket scan, per saved
-   result, per training step and per preprocessed case beside the main
-   path's), then the card line, then the device line.
+11. The sharded programs (parallel/) at full width: (a) a world-1 NCCL
+   group in this process: ``EnsembleEngine(tile_mesh=)`` on the seed-7
+   projection at 'exact' against the solo program (>= 0.9999); (b) two
+   NCCL ranks on the one card (``--nccl-probe``), whose refusal is
+   printed; (c) two gloo ranks sharing the card with CUDA tensors
+   (``chip_smoke.py --rank r 2 port``, killed and failing the run after
+   300 s): the tile-sharded scan at 'exact' and 'fast' against this
+   process's solo program (>= 0.9999 / >= 0.999), ``predict_cohort(mesh=)``
+   of phase 6's 8 phantoms (written once, mapped by each rank) at both
+   precisions against the one-rank cohort (>= 0.9999 / >= 0.999),
+   ``predict_cohort_distributed`` with shares of 5 and 3 and ``gather``
+   (>= 0.9999), a fp32 flagship ``Trainer(mesh={'data': 2})`` step at
+   batch 16 and a ``{'model': 2}`` step at batch 2, two steps each,
+   against one rank's losses (rtol 1e-6: one step moves the loss by about
+   4e-4 of itself, so a gradient that misses a rank's share shows); per rank the seconds of
+   each call, the kernels' launches (both kernels on every rank: prefilter
+   2, fused block 80 per fast scan and per fast cohort share) and peak
+   memory. Phase 2 holds both kernels at a rank's shapes: the fused block
+   at N = 8 (2 of the 4 tiles) and N = 64 (4 scans of the cohort), the
+   prefilter at the cohort share (4, 400, 512, 2) along axes 1, 2.
+12. One JSON line with every kernel (the batch-8, bucket, visual,
+   training and per-rank figures and launches per batch, per bucket scan,
+   per saved result, per training step, per preprocessed case and per
+   rank beside the main path's), then the card line, then the device
+   line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package. It reaches no network:
@@ -204,6 +228,13 @@ TRAIN_SPACING = (1.1, 0.9)
 TRAIN_BATCH = 16
 WARP_STACK = (round(TRAIN_BATCH * 0.36), 256, 256, 2)
 LOWRES_STACK = (4, 128, 128)
+# phase 11, two ranks on the card: a rank's share of the tile-sharded scan
+# (2 of the 4 tiles x 4 mirrors) and of the 8-phantom cohort (4 scans x 4
+# tiles x 4 mirrors), and the prefilter's stack of that cohort share
+RANKS = 2
+TILE_RANK_N = SOLO_BATCH // RANKS
+COHORT_RANK_N = 8 // RANKS * SOLO_BATCH
+COHORT_RANK_STACK = (8 // RANKS, 400, 512, 2)
 
 
 def phase(name):
@@ -363,6 +394,9 @@ def check_prefilter():
     compare(compare(xw, 1), 2)
     xl = torch.randn(LOWRES_STACK, generator=gen).cuda()
     compare(compare(xl, 1), 2)
+    # phase 11: a rank's share of the cohort along axes 1, 2
+    xr = torch.randn(COHORT_RANK_STACK, generator=gen).cuda()
+    compare(compare(xr, 1), 2)
     for shape, axis in PREFILTER_EDGES:
         # the float64 reference loop is slow at 20000 samples: the plain
         # versions hold that one
@@ -411,6 +445,10 @@ def check_prefilter():
         a = torch.matmul(mats[128], xl)
         return torch.matmul(a, mats[128].T)
 
+    def library_cohort_rank():
+        a = torch.matmul(mats[400], xr.view(4, 400, 1024))
+        return torch.matmul(mats[512], a.view(1600, 512, 2)).view(xr.shape)
+
     def empty_pair():  # the launch floor: two empty kernels
         torch.cuda._sleep(0)
         torch.cuda._sleep(0)
@@ -433,7 +471,8 @@ def check_prefilter():
                                    rtol=1e-4, atol=1e-5)
         for lib, t, axes in ((library_train_preprocess, xp, (0, 1)),
                              (library_train_warp, xw, (1, 2)),
-                             (library_train_lowres, xl, (1, 2))):
+                             (library_train_lowres, xl, (1, 2)),
+                             (library_cohort_rank, xr, (1, 2))):
             torch.testing.assert_close(lib(), pair(t, axes, PF.prefilter_axis)(),
                                        rtol=1e-4, atol=1e-5)
         floor_ms, floor_dev = cuda_ms(empty_pair, 200), device_ms(empty_pair, 50)
@@ -449,7 +488,9 @@ def check_prefilter():
                 ('train_warp', xw, (1, 2), library_train_warp,
                  ((256, 3072), (256, 3072))),
                 ('train_lowres', xl, (1, 2), library_train_lowres,
-                 ((128, 512), (128, 512)))):
+                 ((128, 512), (128, 512))),
+                ('cohort_rank', xr, (1, 2), library_cohort_rank,
+                 ((400, 4096), (512, 3200)))):
             kernel = pair(t, axes, PF.bspline_prefilter_cuda)
             bound, by = prefilter_bound_ms(passes)
             res[name] = {'ms': cuda_ms(kernel, 200),
@@ -468,7 +509,8 @@ def check_prefilter():
                  'visual': '(400, 512) axes 1, 0',
                  'train_preprocess': f'{TRAIN_CASE} axes 0, 1',
                  'train_warp': f'{WARP_STACK} axes 1, 2',
-                 'train_lowres': f'{LOWRES_STACK} axes 1, 2'}[name]
+                 'train_lowres': f'{LOWRES_STACK} axes 1, 2',
+                 'cohort_rank': f'{COHORT_RANK_STACK} axes 1, 2'}[name]
         print(f'prefilter {name} pair {where}: kernel {r["ms"]:.4f} ms eager, {r["device_ms"]:.4f} ms device '
               f'({r["bound_ms"] / r["device_ms"]:.1%} of bound); plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
@@ -489,7 +531,7 @@ def check_prefilter():
                        'bound_by')}
                for name in ('batch8', 'bucket', 'bucket_batch8', 'visual',
                             'train_preprocess', 'train_warp',
-                            'train_lowres')}}
+                            'train_lowres', 'cohort_rank')}}
 
 
 def fused_launches(arch, in_channels=2):
@@ -591,8 +633,10 @@ def check_fused_block():
         worst = max(worst, err)
         print(f'edge {(N, H, W, C, Co, act)}: max |y - plain| {err:.4g}')
     # the main path's forward batch (4 tiles x 4 mirrors), then the batched
-    # serving program's (8 scans of it); fewer timing rounds at 128
-    for N, iters in ((SOLO_BATCH, 20), (8 * SOLO_BATCH, 5)):
+    # serving program's (8 scans of it); fewer timing rounds at 128; then a
+    # rank's share of the tile-sharded scan and of the cohort (phase 11)
+    for N, iters in ((SOLO_BATCH, 20), (8 * SOLO_BATCH, 5),
+                     (TILE_RANK_N, 20), (COHORT_RANK_N, 10)):
         for H, W, C, Co, act in shapes:
             args = operands(N, H, W, C, Co)
             y, err = check(args, act)
@@ -625,7 +669,7 @@ def check_fused_block():
                 ms = cuda_ms(kernel, iters)
                 dev_ms = device_ms(kernel, iters)
                 plain_ms = cuda_ms(lambda: FB.fused_norm_act_conv_plain(
-                    *args, apply_normact=act), 3 if N == SOLO_BATCH else 1)
+                    *args, apply_normact=act), 3 if N <= SOLO_BATCH else 1)
                 rounds = [cuda_ms(library, iters) for _ in range(3)]
                 library_ms = min(rounds)
             del args, y
@@ -659,7 +703,9 @@ def check_fused_block():
     # one scan (N = 16) and one 8-scan batch (N = 128): 5 groups x one
     # forward of the tile batch
     totals = {}
-    for N, what in ((SOLO_BATCH, 'one scan'), (8 * SOLO_BATCH, 'one batch')):
+    for N, what in ((SOLO_BATCH, 'one scan'), (8 * SOLO_BATCH, 'one batch'),
+                    (TILE_RANK_N, "a rank's tile share"),
+                    (COHORT_RANK_N, "a rank's cohort share")):
         runs = [per_shape[(N,) + sh] for sh in per_forward for _ in GROUPS]
         ms, plain_ms, library_ms = (sum(t[i] for t in runs) for i in range(3))
         dev_ms = sum(t[5] for t in runs)
@@ -681,7 +727,10 @@ def check_fused_block():
             'max_abs_err': worst, **solo,
             'batch8': {k: totals[8 * SOLO_BATCH][k] for k in
                        ('ms', 'device_ms', 'plain_ms', 'library_ms',
-                        'bound_ms')}}, len(per_forward) * len(GROUPS)
+                        'bound_ms')},
+            **{name: totals[N] for name, N in (('tile_rank', TILE_RANK_N),
+                                                ('cohort_rank', COHORT_RANK_N))}
+            }
 
 
 # -- the synthetic model database -------------------------------------------
@@ -1196,12 +1245,18 @@ def serving_http(tool, scan, solo_seg):
         raise SystemExit(f'unexpected serving metrics {metrics}')
 
 
-def serving(db, first, fused_per_scan):
-    """Phase 6: the serving path at full width, both precisions."""
+def serving_inputs(first):
+    """Phases 6, 7 and 11's inputs: 16 phantoms (seeds 7-22) and the
+    projections of the first 8."""
     t0 = time.perf_counter()
     scans = phantoms(first, list(range(7, 23)))
     arrs = [projection(sc) for sc in scans[:8]]
     print(f'16 phantoms and 8 projections in {time.perf_counter() - t0:.1f} s')
+    return scans, arrs
+
+
+def serving(db, first, scans, arrs, fused_per_scan):
+    """Phase 6: the serving path at full width, both precisions."""
     launches = {}
     for precision in ('exact', 'fast'):
         param = FAST if precision == 'fast' else None
@@ -1219,7 +1274,7 @@ def serving(db, first, fused_per_scan):
                 serving_http(tool, first, solo_seg)
         gc.collect()
         torch.cuda.empty_cache()
-    return launches['fast'], scans, arrs
+    return launches['fast']
 
 
 # -- 7. the geometry-as-data paths ---------------------------------------------
@@ -2446,47 +2501,333 @@ def training(smi):
     return {'train_preprocess': per_case, **sites}
 
 
-def main():
+# -- 11. parallel/: the sharded programs on torch.distributed -----------------
+
+PAR = os.path.join(WORK, 'parallel')   # the ranks' inputs and results
+RANK_TIMEOUT = 300                     # s a rank subprocess may take
+PAR_BATCH = 16                         # the data=2 training step's batch
+
+
+def flagship_set(db, fast=False, **kw):
+    """An EnsembleEngine of the flagship database's 5 groups."""
+    from totalsegmentator2d_tpu_torch.inference import EnsembleEngine, Zoo
+    zoo = Zoo(local=db)
+    hosted = [zoo.load(i) for i in zoo.resolve('ts2d-v9-flagship',
+                                               unique_model=True)]
+    return EnsembleEngine([m.spec for m in hosted],
+                          [m.load_fold_params() for m in hosted],
+                          compute_dtype=torch.bfloat16 if fast else None, **kw)
+
+
+def par_batch(n):
+    """A training batch of n vertebrae cases at the flagship patch, the
+    same on every rank."""
+    cases = [vertebrae_case(FLAGSHIP['patch'], seed=60 + i) for i in range(n)]
+    img = np.stack([c[0] for c in cases])
+    return {'image': (img - 300) / 300,
+            'target': np.stack([one_hot(c[1]) for c in cases])}
+
+
+def par_train(mesh, batch, steps=2):
+    """(losses, s of the last step) of a fp32 flagship Trainer, seed 0."""
+    from totalsegmentator2d_tpu_torch.training import TrainConfig, Trainer
+    tr = Trainer(flagship_train_spec().arch, TrainConfig(total_steps=10),
+                 mesh=mesh, seed=0)
+    losses = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(batch)))
+        dt = time.perf_counter() - t0
+    tr.close()
+    return losses, dt
+
+
+def timed(fn):
+    """(fn(), its blocking seconds, its kernel launches)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def rank_main(rank, world, port):
+    """One gloo rank of phase 11 (``chip_smoke.py --rank r --world n
+    --port p``): the tile-sharded scan at 'exact' and 'fast', cohort data
+    parallelism and predict_cohort_distributed, a data=2 and a model=2
+    training step; writes its masks and numbers under PAR."""
+    import torch.distributed as dist
+
+    from totalsegmentator2d_tpu_torch.parallel import (
+        init_distributed, make_mesh, predict_cohort_distributed)
+    init_distributed(f'127.0.0.1:{port}', world, rank, backend='gloo')
+    db = os.path.join(WORK, 'db_flagship')
+    arr = np.load(os.path.join(PAR, 'arr.npy'))
+    vols = np.load(os.path.join(PAR, 'vols.npy'), mmap_mode='r')
+    mesh = make_mesh({'data': world})
+    res, arrays = {'device': str(torch.cuda.current_device())}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for prec in ('exact', 'fast'):
+        engine = flagship_set(db, prec == 'fast', tile_mesh=mesh)
+        engine.predict_array(arr, SPACING_YX)          # builds the program
+        seg, dt, ran = timed(lambda: engine.predict_array(arr, SPACING_YX))
+        arrays[f'tile_{prec}'] = np.packbits(seg, -1)
+        res[f'tile_{prec}'] = {'s': dt, 'launches': ran}
+        engine.close()
+        engine = flagship_set(db, prec == 'fast')
+        engine.predict_cohort(vols, SPACING_YX, MODES, mesh=mesh)
+        segs, dt, ran = timed(lambda: engine.predict_cohort(
+            vols, SPACING_YX, MODES, mesh=mesh))
+        arrays[f'cohort_{prec}'] = np.packbits(segs, -1)
+        res[f'cohort_{prec}'] = {'s': dt, 'launches': ran}
+        if prec == 'exact':
+            mine = vols[:5] if rank == 0 else vols[5:]
+            segs, dt, ran = timed(lambda: predict_cohort_distributed(
+                engine, mine, SPACING_YX, MODES, mesh=mesh, gather=True))
+            arrays['dist'] = np.packbits(segs, -1)
+            res['dist'] = {'s': dt, 'launches': ran}
+        engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, axes, n in (('train_data2', {'data': world}, PAR_BATCH),
+                          ('train_model2', {'model': world}, 2)):
+        (losses, dt), _, ran = timed(lambda: par_train(make_mesh(axes),
+                                                      par_batch(n)))
+        res[name] = {'losses': losses, 's': dt, 'launches': ran}
+    res['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    np.savez(os.path.join(PAR, f'rank{rank}.npz'), **arrays)
+    with open(os.path.join(PAR, f'rank{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_probe_main(rank, world, port):
+    """Two NCCL ranks on the one card: the first collective tells whether
+    NCCL takes them (it is expected to refuse)."""
+    import torch.distributed as dist
+
+    from totalsegmentator2d_tpu_torch.parallel import init_distributed
+    init_distributed(f'127.0.0.1:{port}', world, rank)
+    t = torch.ones(1, device='cuda')
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f'NCCL all_reduce on rank {rank}: {float(t)}')
+    dist.destroy_process_group()
+
+
+def run_ranks(flag, world, timeout):
+    """``world`` processes of this script with ``flag``; [(rc, output)];
+    every process still running after ``timeout`` s is killed (rc None)."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(world),
+         str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=ROOT))
+        for r in range(world)]
+    out = []
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            text = p.communicate(timeout=max(1, deadline - time.monotonic()))[0]
+            out.append((p.returncode, text.decode(errors='replace')))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out.append((None, p.communicate()[0].decode(errors='replace')))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return out
+
+
+def parallel_phase(db, smi):
+    """Phase 11: the world-1 NCCL tile-sharded scan in this process, the
+    NCCL probe of two ranks on one card, then two gloo ranks sharing the
+    card against this process's one-rank results. Returns each rank's
+    launches of the two kernels at the new call sites."""
+    import torch.distributed as dist
+
+    from totalsegmentator2d_tpu_torch.parallel import init_distributed, make_mesh
+    phase(f'parallel/: world-1 NCCL, then {RANKS} gloo ranks sharing the card')
+    arr = np.load(os.path.join(PAR, 'arr.npy'))
+    vols = np.load(os.path.join(PAR, 'vols.npy'), mmap_mode='r')
+    refs = {}
+    init_distributed(f'127.0.0.1:{free_port()}', 1, 0)
+    try:
+        mesh = make_mesh({'data': 1})
+        for prec in ('exact', 'fast'):
+            solo = flagship_set(db, prec == 'fast')
+            refs[f'tile_{prec}'] = solo.predict_array(arr, SPACING_YX)
+            if prec == 'exact':
+                tiled = flagship_set(db, tile_mesh=mesh)
+                tiled.predict_array(arr, SPACING_YX)
+                seg, dt, _ = timed(lambda: tiled.predict_array(arr, SPACING_YX))
+                agree = agreement(seg, refs['tile_exact'])
+                print(f'(a) world-1 {dist.get_backend()} group, tile-sharded '
+                      f'exact scan: {dt:.4f} s, agreement with solo '
+                      f'{agree:.6f} [{smi}]')
+                if agree < 0.9999:
+                    raise SystemExit(f'world-1 tile-sharded scan {agree}')
+                tiled.close()
+            refs[f'cohort_{prec}'] = solo.predict_cohort(vols, SPACING_YX,
+                                                         MODES)
+            solo.close()
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs['train_data2'] = par_train(None, par_batch(PAR_BATCH))[0]
+    refs['train_model2'] = par_train(None, par_batch(2))[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    probe = run_ranks('--nccl-probe', RANKS, 60)
+    if all(rc == 0 for rc, _ in probe):
+        print(f'(b) NCCL took {RANKS} ranks on one card')
+    else:
+        lines = [ln for _, text in probe for ln in text.splitlines()]
+        why = ([ln for ln in lines if 'Duplicate GPU' in ln]
+               or [ln for ln in lines if 'Error' in ln] or ['?'])
+        print(f'(b) NCCL refused {RANKS} ranks on one card (return codes '
+              f'{[rc for rc, _ in probe]}): {why[0].strip()[:300]}')
+
+    t0 = time.perf_counter()
+    ranks = run_ranks('--rank', RANKS, RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(ranks):
+        if rc != 0:
+            raise SystemExit(f'phase 11 rank {r} failed (rc {rc}):\n'
+                             f'{text[-4000:]}')
+    results, n_labels = [], refs['tile_exact'].shape[-1]
+    for r in range(RANKS):
+        with open(os.path.join(PAR, f'rank{r}.json')) as f:
+            res = json.load(f)
+        npz = np.load(os.path.join(PAR, f'rank{r}.npz'))
+        res['arrays'] = {k: np.unpackbits(npz[k], -1)[..., :n_labels]
+                         for k in npz.files}
+        results.append(res)
+    print(f'(c) {RANKS} gloo ranks on {results[0]["device"]!r}: '
+          f'{wall:.1f} s with their start [{smi}]')
+    bars = {'tile_exact': 0.9999, 'tile_fast': 0.999, 'cohort_exact': 0.9999,
+            'cohort_fast': 0.999, 'dist': 0.9999}
+    for r, res in enumerate(results):
+        for name, bar in bars.items():
+            ref = refs['cohort_exact' if name == 'dist' else name]
+            got = res['arrays'][name]
+            agree = agreement(got, ref) if got.shape == ref.shape else -1.0
+            ran = res[name]['launches']
+            print(f'rank {r} {name}: {res[name]["s"]:.4f} s, launches {ran}, '
+                  f'agreement with one rank {agree:.6f} [{smi}]')
+            if agree < bar:
+                raise SystemExit(f'rank {r} {name}: agreement {agree} < {bar}')
+            if ran['bspline_prefilter'] < 1 or (
+                    ran['fused_norm_act_conv'] < 1) != ('fast' not in name):
+                raise SystemExit(f'rank {r} {name}: launches {ran}')
+        for name, rtol in (('train_data2', 1e-6), ('train_model2', 1e-6)):
+            got, want = res[name]['losses'], refs[name]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            print(f'rank {r} {name}: losses {got} against one rank {want}, '
+                  f'max rel diff {rel:.3g}, last step {res[name]["s"]:.4f} s '
+                  f'[{smi}]')
+            if rel > rtol:
+                raise SystemExit(f'rank {r} {name}: losses differ by {rel}')
+        print(f'rank {r}: peak memory {res["peak_gib"]:.2f} GiB [{smi}]')
+    return [{name: res[name]['launches'] for name in
+             ('tile_fast', 'cohort_fast')} for res in results]
+
+
+def parallel_inputs(scans):
+    """Phase 11's inputs, written once: the seed-7 projection and the 8
+    phantoms of phase 6 (RAI), which each rank maps."""
+    os.makedirs(PAR, exist_ok=True)
+    np.save(os.path.join(PAR, 'arr.npy'), projection(scans[0]))
+    vols = np.lib.format.open_memmap(
+        os.path.join(PAR, 'vols.npy'), 'w+', np.int16,
+        (8,) + reorient(scans[0], 'RAI').array.shape)
+    for i, sc in enumerate(scans[:8]):
+        vols[i] = reorient(sc, 'RAI').array
+    vols.flush()
+    del vols
+
+
+PHASES = frozenset(range(1, 12))
+
+
+def main(phases=PHASES):
+    """Every phase, or with ``--phases 2,11`` a subset (phase 1 always; each
+    phase makes the inputs it needs: the database and the seed-7 phantom,
+    phase 6's phantoms for phases 7 and 11). A subset's kernels line holds
+    what its phases measured, and only the whole run requires every
+    kernel's launches on every path."""
     shutil.rmtree(WORK, ignore_errors=True)
     smi, host_build_s = device_info()
-    prefilter = check_prefilter()
-    fused, fused_per_scan = check_fused_block()
+    fused_per_scan = len(fused_launches(FLAGSHIP)) * len(GROUPS)
+    prefilter = {'name': 'bspline_prefilter'}
+    fused = {'name': 'fused_norm_act_conv'}
+    if 2 in phases:
+        prefilter, fused = check_prefilter(), check_fused_block()
+    kernels = [prefilter, fused]
+    sites = {}   # [(kernel key, counts by kernel name)] of the phases run
 
     db = os.path.join(WORK, 'db_flagship')
-    t0 = time.perf_counter()
-    write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
-    scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
-    print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
-    _, exact = main_path(db, scan, 'exact', fused_per_scan)
-    launches, fast = main_path(db, scan, 'fast', fused_per_scan)
-    print(f'mask agreement fast vs exact (flagship scan): '
-          f'{float((fast == exact).mean()):.6f}')
-
-    gpu_vs_cpu('exact', 0.999)
-    gpu_vs_cpu('fast', 0.99)
-    per_model_path()
-    per_batch, scans, arrs = serving(db, scan, fused_per_scan)
-    per_bucket, per_bucket_batch = geometry_as_data(db, scans, arrs,
-                                                    fused_per_scan)
-    del scans, arrs
-    per_save = io_and_visuals(db, scan, host_build_s)
-    dicom_phase(db, scan, fused_per_scan)
-    train_launches = training(smi)
-    kernels = [prefilter, fused]
+    if phases & {3, 6, 7, 8, 9, 11}:
+        t0 = time.perf_counter()
+        write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
+        scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
+        print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
+    if 3 in phases:
+        _, exact = main_path(db, scan, 'exact', fused_per_scan)
+        sites['launches'], fast = main_path(db, scan, 'fast', fused_per_scan)
+        print(f'mask agreement fast vs exact (flagship scan): '
+              f'{float((fast == exact).mean()):.6f}')
+    if 4 in phases:
+        gpu_vs_cpu('exact', 0.999)
+        gpu_vs_cpu('fast', 0.99)
+    if 5 in phases:
+        per_model_path()
+    if phases & {6, 7, 11}:
+        scans, arrs = serving_inputs(scan)
+        if 6 in phases:
+            sites['batch8'] = serving(db, scan, scans, arrs, fused_per_scan)
+        if 7 in phases:
+            sites['bucket'], sites['bucket_batch8'] = geometry_as_data(
+                db, scans, arrs, fused_per_scan)
+        if 11 in phases:
+            parallel_inputs(scans)
+        del scans, arrs
+    if 8 in phases:
+        prefilter.setdefault('visual', {})['launches'] = io_and_visuals(
+            db, scan, host_build_s)['bspline_prefilter']
+    if 9 in phases:
+        dicom_phase(db, scan, fused_per_scan)
+    if 10 in phases:
+        for key, n in training(smi).items():   # per case, per training step
+            prefilter.setdefault(key, {})['launches'] = n
+    if 11 in phases:
+        per_rank = parallel_phase(db, smi)
+        # per rank of phase 11 (the fewest of the ranks)
+        prefilter.setdefault('cohort_rank', {})['launches'] = min(
+            r['cohort_fast']['bspline_prefilter'] for r in per_rank)
+        for key, call in (('tile_rank', 'tile_fast'),
+                          ('cohort_rank', 'cohort_fast')):
+            fused.setdefault(key, {})['launches'] = min(
+                r[call]['fused_norm_act_conv'] for r in per_rank)
     for k in kernels:
         name = k['name']
-        k['launches'] = launches[name]
-        for key, counts in (('batch8', per_batch), ('bucket', per_bucket),
-                            ('bucket_batch8', per_bucket_batch)):
-            k.setdefault(key, {})['launches'] = counts[name]
-        if min(k['launches'], k['batch8']['launches'],
-               k['bucket']['launches'],
-               k['bucket_batch8']['launches']) < 1:
+        for key, counts in sites.items():
+            if key == 'launches':
+                k['launches'] = counts[name]
+            else:
+                k.setdefault(key, {})['launches'] = counts[name]
+        if phases == PHASES and min(
+                k['launches'], k['batch8']['launches'],
+                k['bucket']['launches'],
+                k['bucket_batch8']['launches']) < 1:
             raise SystemExit(f'{name} did not run on the main path, the '
                              f'batched serving path or the bucket paths')
-    prefilter['visual']['launches'] = per_save['bspline_prefilter']
-    for key, n in train_launches.items():   # per case, per training step
-        prefilter[key]['launches'] = n
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
@@ -2496,4 +2837,12 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] in ('--rank', '--nccl-probe'):
+        (rank_main if sys.argv[1] == '--rank' else nccl_probe_main)(
+            *(int(a) for a in sys.argv[2:]))
+    elif len(sys.argv) == 3 and sys.argv[1] == '--phases':
+        main(frozenset(int(p) for p in sys.argv[2].split(',')) | {1})
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        sys.exit('usage: python3 chip_smoke.py [--phases 1,2,11]')

@@ -10,7 +10,8 @@ the volumes of tests/test_008_ensemble_engine.py's TestCohort).
   reference's (the same bars); 'pad' > 0.99 against 'exact' (test_008:238)
   in one padded program; ``pad_quantum=1`` pad equals exact bit for bit,
   also for negative volumes (test_008:240-255); unsupported modes and
-  ``mesh=`` raise.
+  a ``mesh=`` that is not a mesh raise (the sharded cohorts:
+  tests/test_torch_parallel_cohort.py).
 
 Measured agreements are written beside the assertions."""
 
@@ -168,9 +169,9 @@ def test_pad_rejects_unsupported_mode(models):
 def test_mesh_raises(models):
     engine = _port(models)
     vols = _same_shape()
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         engine.predict_cohort(vols, SPACING, MODES, mesh=object())
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         engine.predict_cohort_mixed(list(vols), SPACING, MODES,
                                     mesh=object(), bucket='pad')
 

@@ -7,14 +7,16 @@ run time in a fresh interpreter whose import system refuses ``jax``,
 ``jaxlib``, ``totalsegmentator2d_tpu[.*]`` (but not the port, whose name
 starts with the same letters), ``requests`` (the port downloads with
 urllib), ``PIL``, ``optax`` and ``orbax``: every port module imports (the
-training package, eval and models.export among them), chip_smoke.py
+training package, eval, models.export and parallel/ among them),
+chip_smoke.py
 imports, a small predict runs on the CPU, a JPEG Lossless DICOM series and
 a zipped series read through the native codecs, and a PNG reads through the
 port's own decoder. The native host library the port loads is its
 own, built into ``totalsegmentator2d_tpu_torch/build/``, never the
 reference package's ``_native/libts2dio.so``: the child records every file
 it opens and every library it loads (audit hooks), and none lies under the
-reference package's ``_native/``."""
+reference package's ``_native/``. The rank processes of
+tests/test_torch_parallel*.py install the same refusals."""
 
 import ast
 import os
@@ -58,6 +60,11 @@ def test_blocker_matches_exact_names(name, blocked):
 
 
 def test_no_import_statement_reaches_jax():
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {'parallel/__init__.py', 'parallel/distributed.py',
+            'parallel/mesh.py', 'parallel/sharding.py', 'parallel/ensemble.py',
+            'parallel/collectives.py', 'parallel/dryrun.py',
+            'training/sharded.py'} <= scanned
     found = []
     for path in _sources():
         with open(path) as f:
@@ -97,6 +104,7 @@ import totalsegmentator2d_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]
 for m in mods:
     importlib.import_module(m)
+assert port.__name__ + '.parallel.distributed' in mods, mods
 available = torch.cuda.is_available
 torch.cuda.is_available = lambda: True   # lets chip_smoke import its modules
 import chip_smoke  # noqa: F401
@@ -166,6 +174,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith('OK')
+
+
+def test_rank_processes_refuse_the_same_imports():
+    from tests.test_torch_parallel import _REFUSED as rank_refused
+    assert set(_REFUSED) <= set(rank_refused)
 
 
 def test_native_library_is_the_ports_own():

@@ -262,16 +262,16 @@ def test_warmup_builds_the_serving_and_batched_programs(models):
 
 @pytest.mark.parametrize('option', ['pad_quantum', 'tile_mesh'])
 def test_later_slices_raise(models, option):
-    """What a later slice brings raises, naming it: tile_mesh, and the mesh
-    of the cohort programs (pad_quantum itself is ported: its engine
-    builds, and rejects a quantum below 1)."""
+    """The options of later slices check what they are given: tile_mesh
+    and the cohort programs' mesh take a DeviceMesh (the sharded programs:
+    tests/test_torch_parallel*.py), pad_quantum a quantum of 1 or more."""
     if option == 'tile_mesh':
-        with pytest.raises(NotImplementedError, match='parallel slice'):
+        with pytest.raises(TypeError, match='DeviceMesh'):
             _port(models, tile_mesh=32)
         return
     engine = _port(models, pad_quantum=32)
     assert engine.pad_quantum == 32
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         engine.predict_cohort(np.zeros((1, 8, 4, 8), np.float32), SPACING,
                               ('max', 'mean'), mesh=object())
     with pytest.raises(ValueError, match='pad_quantum'):

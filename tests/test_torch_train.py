@@ -352,11 +352,12 @@ def test_config_and_parallel_refusals():
         T.TrainConfig(stats='onepass')
     for call in (lambda: T.Trainer(ArchSpec(**SMALL), T.TrainConfig(),
                                    mesh=object(), device='cpu'),
-                 lambda: T.Trainer(ArchSpec(**SMALL), T.TrainConfig(),
-                                   spatial=True, device='cpu'),
                  lambda: T.build_sharded_train_step(None, None, None, None)):
-        with pytest.raises(NotImplementedError, match='parallel slice'):
+        with pytest.raises(TypeError, match='DeviceMesh'):
             call()
+    with pytest.raises(NotImplementedError, match='spatial slice'):
+        T.Trainer(ArchSpec(**SMALL), T.TrainConfig(), spatial=True,
+                  device='cpu')
 
 
 # -- the trainer loop ----------------------------------------------------------------

@@ -200,7 +200,7 @@ def test_cli_nrrd_val_fraction_and_refusals(tmp_path, capsys):
     assert mid == 'ts2d-case_organs'
     assert (out / mid / 'r001' / 'model.json').exists()
     assert 'holdout Dice' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(RuntimeError, match='launch with torchrun'):
         main(['-d', str(data), '-o', str(out), '--mesh', 'data=4',
               '--device', 'cpu'])
     soft = tmp_path / 'soft'

@@ -33,6 +33,13 @@ its own dtype and is projected on the card), the **cohort programs**
 (:meth:`~EnsembleEngine.predict_cohort`, same-shape volumes in one batched
 program, and :meth:`~EnsembleEngine.predict_cohort_mixed`, grouped by exact
 shape or padded into shape buckets through the masked program).
+
+Over a ``torch.distributed`` mesh (parallel/): ``tile_mesh=`` spreads one
+scan's tile grid over the ranks of a mesh axis, whose partial accumulators
+are summed (inference/tiling.accumulate_tiles_sharded); ``mesh=`` on the
+cohort programs runs each data rank's rows through its batched program and
+gathers the packed masks, so every rank returns the whole cohort. Every
+rank of the mesh makes the same call.
 """
 
 from __future__ import annotations
@@ -358,8 +365,12 @@ class EnsembleEngine(ScanEngine):
         bucket program of its shape rounded up to a multiple of N per axis
         (inference/bucket.py), whose masks match the exact per-shape
         program's up to borderline pixels; None = the exact programs
-    :param tile_mesh: the reference's tile-sharded program, a later slice
-        of the port (the parallel slice); raises
+    :param tile_mesh: a mesh (parallel.make_mesh): the solo program's
+        tile grid shards over its ``tile_axis``, each rank running its
+        contiguous share, and the partial accumulators are summed over the
+        axis; every rank calls predict with the same scan. Not with
+        ``auto_batch``.
+    :param tile_axis: the mesh axis of ``tile_mesh`` (default 'data')
     """
 
     kind = 'ensemble'
@@ -371,19 +382,26 @@ class EnsembleEngine(ScanEngine):
                  forward_batch_cap: int = 64,
                  auto_batch: Optional[int] = None,
                  compact_wire: Optional[bool] = None,
-                 pad_quantum: Optional[int] = None, tile_mesh=None):
+                 pad_quantum: Optional[int] = None, tile_mesh=None,
+                 tile_axis: str = 'data'):
         if pad_quantum is not None and int(pad_quantum) < 1:
             raise ValueError('pad_quantum must be >= 1')
-        if tile_mesh is not None:
-            raise NotImplementedError(
-                'tile_mesh (the tile-sharded program) is not ported to the '
-                'PyTorch package yet: it comes with the parallel slice')
+        if auto_batch is not None and tile_mesh is not None:
+            # the batcher stacks scans into the batched program; the
+            # tile-sharded program spreads one scan over the ranks: scale
+            # throughput OR one scan's latency, not both
+            raise ValueError('auto_batch cannot be combined with tile_mesh')
         if not specs:
             raise ValueError('At least one group is required')
         self._batcher = None  # before anything can raise: close() reads it
         super().__init__(specs[0], tile_step_size, use_mirroring,
                          compute_dtype, device, forward_batch_cap)
         self.specs = list(specs)
+        if tile_mesh is not None:
+            from ..parallel.mesh import axis_size, check_mesh
+            if not axis_size(check_mesh(tile_mesh), tile_axis):
+                raise ValueError(f'tile_mesh has no axis {tile_axis!r}')
+        self.tile_mesh, self.tile_axis = tile_mesh, tile_axis
         head_free = dataclasses.replace(self.spec.arch, out_channels=0)
         for s in specs[1:]:
             if s.preprocess != self.spec.preprocess:
@@ -623,12 +641,15 @@ class EnsembleEngine(ScanEngine):
 
     def _fetch_masks(self, out, cmeta, ready, batch=False) -> np.ndarray:
         """A program's device masks as unpacked host masks."""
+        return unpack_bits(self._fetch_packed(out, cmeta, ready, batch),
+                           self.total_labels)
+
+    def _fetch_packed(self, out, cmeta, ready, batch=False) -> np.ndarray:
+        """A program's device masks as packed host masks."""
         if cmeta is not None:
-            packed = (fetch_compact_batch if batch else fetch_compact)(
+            return (fetch_compact_batch if batch else fetch_compact)(
                 out, cmeta, ready)
-        else:
-            packed = to_host(out, ready)
-        return unpack_bits(packed, self.total_labels)
+        return to_host(out, ready)
 
     def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
                       ) -> np.ndarray:
@@ -772,12 +793,27 @@ class EnsembleEngine(ScanEngine):
     # -- the cohort programs ---------------------------------------------------
 
     @staticmethod
-    def _no_mesh(mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh (cohort data parallelism over several cards) is not '
-                'ported to the PyTorch package yet: it comes with the '
-                'parallel slice')
+    def _over_data(mesh, run, rows, *args) -> np.ndarray:
+        """``run(*rows, *args)`` (the packed host masks of those rows) over
+        the mesh's data axis: the row arrays are padded to a multiple of
+        its size D by repeating the last scan, each data rank runs its
+        contiguous share, and the shares are gathered over the axis, so
+        every rank returns the packed masks of all the rows."""
+        if mesh is None:
+            return run(*rows, *args)
+        from ..parallel.collectives import all_gather_cat
+        from ..parallel.mesh import (axis_index, axis_size, check_mesh,
+                                     data_axis, named)
+        ax = data_axis(check_mesh(mesh))
+        D, r = axis_size(mesh, ax), axis_index(mesh, ax)
+        n = len(rows[0])
+        k = -(-n // D)
+        if k * D != n:
+            rows = [np.concatenate([a, np.repeat(a[-1:], k * D - n, axis=0)])
+                    for a in rows]
+        mine = run(*[a[r * k:(r + 1) * k] for a in rows], *args)
+        return all_gather_cat(torch.from_numpy(mine), 0,
+                              named(mesh, ax)).numpy()[:n]
 
     def _build_cohort(self, n: int, vol_shape: Tuple[int, int, int],
                       spacing_yx: Tuple[float, float],
@@ -803,22 +839,34 @@ class EnsembleEngine(ScanEngine):
     def predict_cohort(self, vols: np.ndarray, spacing_yx: Sequence[float],
                        modes: Sequence[str], mesh=None) -> np.ndarray:
         """(N, Z, Y, X) same-shape RAI volumes -> merged multilabel masks
-        (N, Z, X, sum L) uint8 from one batched program. For volumes of
-        several shapes, :meth:`predict_cohort_mixed`. ``mesh``: the parallel
-        slice's; raises."""
-        self._no_mesh(mesh)
+        (N, Z, X, sum L) uint8 from one batched program. With ``mesh``,
+        data parallel over its 'data' (or first) axis: each data rank runs
+        its share of the scans (N padded to a multiple of the axis by
+        repeating the last scan) and every rank returns the whole cohort.
+        For volumes of several shapes, :meth:`predict_cohort_mixed`."""
         modes = tuple(modes)
         if any(self.spec.preprocess.use_mask_for_norm):
             # exact masked normalization needs the hole-filled host mask:
             # project on the host and queue the 2D path (requests coalesce
-            # in the micro-batcher when it is on)
+            # in the micro-batcher when it is on); every rank runs them all
+            if mesh is not None:
+                warn('predict_cohort ignores the mesh for masked-norm '
+                     'plans (exact hole-filled masks are host-side)',
+                     once=True)
             handles = [self.predict_array_async(
                 self._host_projection(np.ascontiguousarray(v), modes),
                 spacing_yx) for v in vols]
             return np.stack([self.finish_array(h) for h in handles])
-        vols = np.ascontiguousarray(vols)
+        from ..parallel.mesh import mesh_key
+        packed = self._over_data(mesh, self._cohort_packed,
+                                 [np.ascontiguousarray(vols)], spacing_yx,
+                                 modes, mesh_key(mesh))
+        return unpack_bits(packed, self.total_labels)
+
+    def _cohort_packed(self, vols, spacing_yx, modes, mkey) -> np.ndarray:
+        """One batched cohort program's packed host masks."""
         key = ('cohort', vols.shape,
-               tuple(round(float(s), 6) for s in spacing_yx), modes)
+               tuple(round(float(s), 6) for s in spacing_yx), modes, mkey)
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
@@ -829,7 +877,7 @@ class EnsembleEngine(ScanEngine):
                     f'shape={vols.shape[1:]}')
         fn, cmeta = hit
         out = fn(vols)
-        return self._fetch_masks(out, cmeta, ready_event(out), batch=True)
+        return self._fetch_packed(out, cmeta, ready_event(out), batch=True)
 
     def _build_cohort_padded(self, n: int, vol_shape: Tuple[int, int, int],
                              spacing_yx: Tuple[float, float],
@@ -901,10 +949,10 @@ class EnsembleEngine(ScanEngine):
         tile grids see the padded extent. Masked-norm plans take 'exact'.
 
         :param spacing_yx: one (y, x) spacing for all scans, or one per scan
-        :param mesh: the parallel slice's; raises
+        :param mesh: data parallel over its 'data' (or first) axis, each
+            exact group or padded bucket as :meth:`predict_cohort`
         :returns: list of per-scan merged masks (Z, X, sum L)
         """
-        self._no_mesh(mesh)
         if bucket not in ('exact', 'pad'):
             raise ValueError(f"bucket must be 'exact' or 'pad'; got {bucket!r}")
         vols = list(vols)
@@ -929,7 +977,7 @@ class EnsembleEngine(ScanEngine):
         for (shape, sp), idxs in sorted(groups.items()):
             if bucket == 'exact':
                 segs = self.predict_cohort(np.stack([vols[i] for i in idxs]),
-                                           sp, modes)
+                                           sp, modes, mesh=mesh)
                 for i, seg in zip(idxs, segs):
                     out[i] = seg
                 continue
@@ -940,7 +988,7 @@ class EnsembleEngine(ScanEngine):
                 z, y, x = vols[i].shape
                 batch[j, :z, :y, :x] = vols[i]
                 exts[j] = vols[i].shape
-            segs = self._predict_cohort_padded(batch, exts, sp, modes)
+            segs = self._predict_cohort_padded(batch, exts, sp, modes, mesh)
             for j, i in enumerate(idxs):
                 z, _, x = vols[i].shape
                 sz, sx = (shape[0] - z) // 2, (shape[2] - x) // 2
@@ -948,11 +996,19 @@ class EnsembleEngine(ScanEngine):
         return out
 
     def _predict_cohort_padded(self, vols: np.ndarray, exts: np.ndarray,
-                               spacing_yx, modes: Tuple[str, ...]
-                               ) -> np.ndarray:
-        """One padded bucket (N, Zq, Yq, Xq) with its true extents."""
+                               spacing_yx, modes: Tuple[str, ...],
+                               mesh=None) -> np.ndarray:
+        """One padded bucket (N, Zq, Yq, Xq) with its true extents, data
+        parallel over ``mesh`` as :meth:`predict_cohort`."""
+        from ..parallel.mesh import mesh_key
+        return unpack_bits(self._over_data(
+            mesh, self._cohort_padded_packed, [vols, exts], spacing_yx, modes,
+            mesh_key(mesh)), self.total_labels)
+
+    def _cohort_padded_packed(self, vols, exts, spacing_yx, modes, mkey
+                              ) -> np.ndarray:
         key = ('cohortpad', vols.shape,
-               tuple(round(float(s), 6) for s in spacing_yx), modes)
+               tuple(round(float(s), 6) for s in spacing_yx), modes, mkey)
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
@@ -964,4 +1020,4 @@ class EnsembleEngine(ScanEngine):
                     f'batch={vols.shape[0]} bucket={vols.shape[1:]}')
         fn, cmeta = hit
         out = fn(vols, exts)
-        return self._fetch_masks(out, cmeta, ready_event(out), batch=True)
+        return self._fetch_packed(out, cmeta, ready_event(out), batch=True)

@@ -42,7 +42,8 @@ from ..ops.normalize import nonzero_norm_mask, normalize_channels
 from ..ops.resample import apply_separable, axis_weights, bspline_prefilter
 from ..utils.device import exact_numerics, hold_exact_numerics, resolve_device
 from ..utils.logging import log
-from .tiling import accumulate_tiles, pad_amounts, padded_shape, tile_positions
+from .tiling import (accumulate_tiles, accumulate_tiles_sharded, pad_amounts,
+                     padded_shape, tile_positions)
 
 
 def _mirror_combos(axes: Sequence[int]) -> List[Tuple[int, ...]]:
@@ -190,6 +191,9 @@ class ScanEngine:
         self.compact_wire = False
         self.acc_prefix: Tuple[int, ...] = ()
         self.n_folds = 0
+        # the tile-sharded solo program's mesh and axis (EnsembleEngine)
+        self.tile_mesh = None
+        self.tile_axis = 'data'
         self._cache: Dict[Tuple, object] = {}
         # request threads and the micro-batcher build programs concurrently:
         # one shape builds once
@@ -293,9 +297,14 @@ class ScanEngine:
             acc = torch.zeros(self.acc_prefix[:-1] + lead
                               + self.acc_prefix[-1:] + pad_shape, device=dev)
             wacc = torch.zeros((1,) + pad_shape, device=dev)
-            accumulate_tiles(work, tiles, self._net, acc, wacc, patch=patch,
-                             mirrors=mirrors, gauss=gauss,
-                             chunk_cap=self.forward_batch_cap)
+            tile_kw = dict(patch=patch, mirrors=mirrors, gauss=gauss,
+                           chunk_cap=self.forward_batch_cap)
+            if batch is None and self.tile_mesh is not None:
+                accumulate_tiles_sharded(work, tiles, self._net, acc, wacc,
+                                         self.tile_mesh, self.tile_axis,
+                                         **tile_kw)
+            else:
+                accumulate_tiles(work, tiles, self._net, acc, wacc, **tile_kw)
             logits = acc / torch.clamp(wacc, min=1e-8)
             logits = logits[..., pads[0][0]:pads[0][0] + rs_shape[0],
                             pads[1][0]:pads[1][0] + rs_shape[1]]

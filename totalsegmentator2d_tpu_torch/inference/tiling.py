@@ -5,6 +5,8 @@ The grid is computed on the host per input shape. :func:`accumulate_tiles`
 runs the tiles in the reference program's order -- chunks of tiles, mirror
 TTA batched inside a chunk, tiles added one after another -- so the fp32
 sums match it term for term, for one scan or for a batch of scans.
+:func:`accumulate_tiles_sharded` spreads one scan's grid over the ranks of
+a mesh axis (the reference's tile-sharded program).
 """
 
 from __future__ import annotations
@@ -135,3 +137,32 @@ def accumulate_tiles(work: torch.Tensor, tiles: np.ndarray,
                     acc[..., s, :, y:y + ph, x:x + pw] += merged[..., s, t, :, :, :]
                     wacc[s, :, y:y + ph, x:x + pw] += (
                         gauss if valid is None else g[s, t])
+
+
+def accumulate_tiles_sharded(work: torch.Tensor, tiles: np.ndarray,
+                             net_batch: Callable[[torch.Tensor], torch.Tensor],
+                             acc: torch.Tensor, wacc: torch.Tensor, mesh,
+                             axis: str, **kw) -> None:
+    """:func:`accumulate_tiles` of one scan over the D ranks of the mesh
+    axis ``axis``: the grid is padded to a multiple of D with tiles of
+    validity 0, each rank accumulates its contiguous share, and the partial
+    ``acc`` and ``wacc`` are summed over the axis's process group in place
+    (the reference's shard_map with a psum). Every rank of the axis calls
+    it with the same scan."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import axis_index, axis_size, named
+    D, r = axis_size(mesh, axis), axis_index(mesh, axis)
+    T = len(tiles)
+    k = -(-T // D)
+    padded = np.zeros((k * D, 2), np.int32)
+    padded[:T] = tiles
+    valid = np.zeros(k * D, np.float32)
+    valid[:T] = 1.0
+    mine = slice(r * k, (r + 1) * k)
+    accumulate_tiles(work, padded[mine], net_batch, acc, wacc,
+                     valid=torch.as_tensor(valid[mine], device=work.device),
+                     **kw)
+    group = named(mesh, axis)
+    dist.all_reduce(acc, group=group)
+    dist.all_reduce(wacc, group=group)

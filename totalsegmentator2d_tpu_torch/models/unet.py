@@ -51,7 +51,7 @@ import contextlib
 import contextvars
 import math
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -64,6 +64,12 @@ from ..utils.device import exact_numerics
 from .plans import ArchSpec
 
 BF16 = torch.bfloat16
+# the training forward's per-module hook: gate(module, fn, t) -> fn(t)
+Gate = Optional[Callable[[nn.Module, Callable, torch.Tensor], torch.Tensor]]
+
+
+def _ungated(module: nn.Module, fn: Callable, t: torch.Tensor) -> torch.Tensor:
+    return fn(t)
 
 
 def _conv_bf16(fn, x: torch.Tensor, w16: torch.Tensor,
@@ -198,10 +204,11 @@ class ConvStack(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convs(x)
 
-    def forward_train(self, x: torch.Tensor,
-                      cdt: Optional[torch.dtype]) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, cdt: Optional[torch.dtype],
+                      gate: Gate = None) -> torch.Tensor:
+        gate = gate or _ungated
         for block in self.convs:
-            x = block.forward_train(x, cdt)
+            x = gate(block, lambda t, b=block: b.forward_train(t, cdt), x)
         return x
 
     def forward_fast(self, x: torch.Tensor) -> torch.Tensor:
@@ -300,23 +307,27 @@ class Decoder(nn.Module):
 
     def forward_train(self, skips: List[torch.Tensor],
                       cdt: Optional[torch.dtype], deep_supervision: bool,
-                      head_dtype: Optional[torch.dtype]):
+                      head_dtype: Optional[torch.dtype], gate: Gate = None):
         """The differentiable decoder; every head, highest resolution
         first, under ``deep_supervision``, else the last one."""
+        gate = gate or _ungated
         x = skips[-1]
         n_dec = len(self.stages)
         heads = []
         for d in range(n_dec):
             tc = self.transpconvs[d]
             if cdt is None:
-                x = tc(x)
+                x = gate(tc, tc, x)
             else:
-                x = _conv_bf16(F.conv_transpose2d, x, tc.weight.to(BF16),
-                               tc.bias, stride=tc.stride)
+                x = gate(tc, lambda t: _conv_bf16(
+                    F.conv_transpose2d, t, tc.weight.to(BF16), tc.bias,
+                    stride=tc.stride), x)
             x = torch.cat([x, skips[n_dec - d - 1].to(x.dtype)], dim=1)
-            x = self.stages[d].forward_train(x, cdt)
+            x = self.stages[d].forward_train(x, cdt, gate)
             if deep_supervision or d == n_dec - 1:
-                heads.append(_head(self.seg_layers[d], x, cdt, head_dtype))
+                seg = self.seg_layers[d]
+                heads.append(gate(seg, lambda t: _head(seg, t, cdt,
+                                                       head_dtype), x))
         return heads[::-1] if deep_supervision else heads[-1]
 
     def forward_fast(self, skips: List[torch.Tensor]) -> torch.Tensor:
@@ -385,13 +396,16 @@ class UNet(nn.Module):
                       compute_dtype: Optional[torch.dtype] = None,
                       deep_supervision: bool = False,
                       head_dtype: Optional[torch.dtype] = None,
-                      remat: bool = False):
+                      remat: bool = False, gate: Gate = None):
         """The differentiable forward, (N, C_in, H, W) in: the logits
         (N, C_out, H, W), or with ``deep_supervision`` every head, highest
         resolution first (the reference's ``forward(params, x, spec,
         deep_supervision, compute_dtype, head_dtype)``). ``compute_dtype``
         None or bf16; ``remat`` keeps only the input and recomputes the
-        forward in the backward pass."""
+        forward in the backward pass. ``gate(module, fn, t)`` runs each
+        block, transposed conv and head as ``fn(t)`` (the default); the
+        tensor-parallel trainer wraps its sharded modules in collectives
+        there (training/sharded.py)."""
         if compute_dtype not in (None, BF16):
             raise ValueError(f'compute_dtype must be None or torch.bfloat16, '
                              f'got {compute_dtype}')
@@ -399,10 +413,11 @@ class UNet(nn.Module):
         def run(t):
             skips = []
             for stage in self.encoder.stages:
-                t = stage.forward_train(t, compute_dtype)
+                t = stage.forward_train(t, compute_dtype, gate)
                 skips.append(t)
             out = self.decoder.forward_train(skips, compute_dtype,
-                                             deep_supervision, head_dtype)
+                                             deep_supervision, head_dtype,
+                                             gate)
             return tuple(out) if deep_supervision else out
 
         out = (torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)

@@ -6,8 +6,15 @@ preprocesses, trains on the card (optionally with the full on-device
 nnU-Net augmentation recipe), cross-validates over folds, and exports a
 zoo-compatible model directory, loadable by ``TS2D(key=...,
 local=<output>)`` of either package and by the original nnU-Net pipeline
-(checkpoints are torch state dicts). ``--device cpu`` trains on the CPU;
-``--mesh`` (training over a device mesh) comes with the parallel slice.
+(checkpoints are torch state dicts). ``--device cpu`` trains on the CPU.
+``--mesh data=2[,model=2]`` shards the step over the ranks of a
+``torch.distributed`` world, one process per rank under torchrun::
+
+    torchrun --nproc-per-node=4 -m totalsegmentator2d_tpu_torch.training.cli \\
+        -d ./Dataset501_hearts -o ~/.ts2d/models --mesh data=2,model=2
+
+Every rank plans, preprocesses and samples the same batches; rank 0 writes
+the export, the pack and the holdout Dice.
 
 Dataset layout (nnU-Net raw, 2D)::
 
@@ -134,6 +141,31 @@ def load_raw_dataset(root: str) -> Tuple[List[Tuple[MedicalImage, MedicalImage]]
     return cases, channel_names, labels, multilabel, ending
 
 
+def _parse_mesh(spec: Optional[str], device):
+    """'data=4,model=2' -> a mesh over the torch.distributed world (joined
+    here from torchrun's env when it is not yet), or None."""
+    if not spec:
+        return None
+    axes = {}
+    for part in spec.split(','):
+        name, _, size = part.partition('=')
+        if not size.isdigit():
+            raise ValueError(f'bad mesh spec {spec!r} (want e.g. '
+                             f'"data=4,model=2")')
+        axes[name.strip()] = int(size)
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_mesh
+    if not dist.is_initialized():
+        if 'WORLD_SIZE' not in os.environ:
+            raise RuntimeError(
+                f'--mesh {spec} needs one process per rank: launch with '
+                f'torchrun --nproc-per-node=<ranks> -m '
+                f'totalsegmentator2d_tpu_torch.training.cli ... --mesh {spec}')
+        init_distributed(device=device)
+    return make_mesh(axes, device=device)
+
+
 def _fold_split(n: int, fold: int, n_folds: int,
                 val_fraction: float, seed: int) -> Tuple[List[int], List[int]]:
     """(train_indices, holdout_indices) for one fold: round-robin K-fold
@@ -204,11 +236,12 @@ def ts2d_train(dataset: str, output: str, model: str = 'ts2d-custom',
     from .planner import compute_fingerprint, plan_experiment
     from .train import TrainConfig, Trainer
 
-    if mesh_spec:
-        raise NotImplementedError(
-            f'--mesh {mesh_spec!r} is not ported yet: training over a device '
-            f'mesh comes with the parallel slice (torch.distributed)')
     device = resolve_device(device)
+    mesh = _parse_mesh(mesh_spec, device)
+    if mesh is not None:   # a bare 'cuda' is this rank's card
+        from ..parallel.distributed import rank_device
+        device = rank_device(device)
+    lead = mesh is None or mesh.get_rank() == 0   # writes and validates
     # database keys are lowercase (FileDataBase.resource_path lowercases on
     # lookup while export writes verbatim): normalize up front so a
     # mixed-case --model never fails AFTER the training run
@@ -266,7 +299,8 @@ def ts2d_train(dataset: str, output: str, model: str = 'ts2d-custom',
                                spec.preprocess.patch_size,
                                oversample_foreground=oversample,
                                seed=seed + fold)
-        trainer = Trainer(spec.arch, cfg, seed=seed + fold, device=device)
+        trainer = Trainer(spec.arch, cfg, mesh=mesh, seed=seed + fold,
+                          device=device)
         ckpt = (os.path.join(os.path.abspath(checkpoint_dir),
                              f'fold_{fold}.pth')
                 if checkpoint_dir else None)
@@ -282,7 +316,8 @@ def ts2d_train(dataset: str, output: str, model: str = 'ts2d-custom',
             if not multilabel:
                 batch['target'] = batch['target'][..., 0].astype(np.int32)
             loss = trainer.step(batch)
-            if log_every and ((s + 1) % log_every == 0 or s + 1 == steps):
+            if lead and log_every and ((s + 1) % log_every == 0
+                                       or s + 1 == steps):
                 log(f'fold {fold} step {s + 1}/{steps}: '
                     f'loss {float(loss):.4f}')
             if (ckpt and checkpoint_every
@@ -294,6 +329,8 @@ def ts2d_train(dataset: str, output: str, model: str = 'ts2d-custom',
         fold_dice.append((fold, hold_idx))
         trainer.close()
 
+    if not lead:   # rank 0 exports, packs and validates
+        return f'{model}_{group}'
     mid = export_model_dir(output, model, group, spec, fold_params,
                            revision=revision, epoch=steps)
     log(f'exported {mid} (r{revision:03d}) to {output}')
@@ -363,8 +400,9 @@ def main(argv=None) -> None:
                         help='rematerialize the forward in the backward '
                              'pass (larger patches/batches per HBM)')
     parser.add_argument('--mesh', default=None,
-                        help='shard the step over a device mesh (comes with '
-                             'the parallel slice; refused here)')
+                        help='shard the step over the ranks of a '
+                             'torch.distributed world, e.g. data=2,model=2 '
+                             '(launch one process per rank with torchrun)')
     parser.add_argument('--oversample', type=float, default=0.33,
                         help='foreground patch oversampling fraction')
     parser.add_argument('--max-patch', type=int, default=512)
@@ -401,6 +439,9 @@ def main(argv=None) -> None:
         revision=args.revision, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         log_every=args.log_every, pack=args.pack, device=args.device)
+    if args.mesh:   # the world this process joined for --mesh
+        import torch.distributed as dist
+        dist.destroy_process_group()
     print(mid)
 
 

@@ -3,11 +3,14 @@ training/train.py).
 
 nnU-Net's optimization recipe: weight decay 3e-5, then SGD with Nesterov
 momentum 0.99 on a polynomial learning-rate decay (power 0.9), Dice + CE /
-BCE with deep supervision. One card: the reference's mesh (data, model and
-ensemble axes, ``build_sharded_train_step``) comes with the parallel slice
-and raises ``NotImplementedError`` here. A stacked ensemble
-(``ensemble_size=G``) trains G independent models on the card, each on its
-own targets with its own augmentation draws.
+BCE with deep supervision. A stacked ensemble (``ensemble_size=G``) trains G
+independent models, each on its own targets with its own augmentation
+draws. ``mesh=`` (a ``parallel.make_mesh`` over the ranks of a
+``torch.distributed`` world) shards the step over its 'data', 'model' and
+'ensemble' axes (training/sharded.py): every rank makes the same calls with
+the GLOBAL batch, and gets the global loss back, as the reference's one
+process does; checkpoints and ``params`` are whole, in the single-device
+layout.
 
 Numerics: fp32 training holds the exact settings (cuDNN without TF32, a
 fixed algorithm choice) while a CUDA trainer lives, so the card trains in
@@ -24,15 +27,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.convert import load_into
 from ..models.plans import ArchSpec
 from ..models.unet import UNet, init_params, stats_override
 from ..utils.device import hold_exact_numerics, resolve_device
 from .losses import deep_supervision_loss, dice_and_ce
-
-_PARALLEL = ('is not ported yet: training over a device mesh comes with the '
-             'parallel slice (torch.distributed)')
 
 
 @dataclasses.dataclass
@@ -93,15 +94,19 @@ def _compute_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
 
 
 def loss_fn(model: UNet, batch: Dict[str, torch.Tensor],
-            cfg: TrainConfig) -> torch.Tensor:
+            cfg: TrainConfig, layout=None) -> torch.Tensor:
     """The loss of one batch (image (N, H, W, C) float, target (N, H, W, L)
-    one-hot or (N, H, W) labels), under ``stats_override(cfg.stats)``."""
+    one-hot or (N, H, W) labels), under ``stats_override(cfg.stats)``.
+    ``layout``: a model holding channel shards (sharded.ShardLayout) runs
+    the forward through the layout's tensor-parallel gate."""
     cdt = _compute_dtype(cfg)
     x = batch['image'].permute(0, 3, 1, 2).contiguous()
     with stats_override(cfg.stats):
         out = model.forward_train(x, compute_dtype=cdt,
                                   deep_supervision=cfg.deep_supervision,
-                                  head_dtype=cdt, remat=cfg.remat)
+                                  head_dtype=cdt, remat=cfg.remat,
+                                  gate=None if layout is None else
+                                  layout.gate(model))
         if cfg.deep_supervision:
             heads = [o.float().permute(0, 2, 3, 1) for o in out]
             return deep_supervision_loss(heads, batch['target'],
@@ -112,14 +117,18 @@ def loss_fn(model: UNet, batch: Dict[str, torch.Tensor],
 
 def train_step(model: UNet, optimizer: torch.optim.SGD,
                batch: Dict[str, torch.Tensor], *, cfg: TrainConfig,
-               count: int) -> torch.Tensor:
+               count: int, layout=None) -> torch.Tensor:
     """One optimization step (update number ``count``): loss, backward
     (recomputing under the same statistics form when ``cfg.remat``), the
-    scheduled SGD update. Returns the detached loss."""
+    scheduled SGD update. Returns the detached loss. ``layout``: the
+    model's shards and this rank's rows of a mesh (sharded.ShardLayout):
+    the gradients and the loss are meaned over the data group first."""
     optimizer.zero_grad(set_to_none=True)
     with stats_override(cfg.stats):
-        loss = loss_fn(model, batch, cfg)
+        loss = loss_fn(model, batch, cfg, layout)
         loss.backward()
+    if layout is not None:
+        loss = layout.sync(model, loss)
     for group in optimizer.param_groups:
         group['lr'] = poly_lr(cfg, count)
     optimizer.step()
@@ -129,18 +138,50 @@ def train_step(model: UNet, optimizer: torch.optim.SGD,
 def ensemble_train_step(models: List[UNet],
                         optimizers: List[torch.optim.SGD],
                         batch: Dict[str, torch.Tensor], *, cfg: TrainConfig,
-                        count: int) -> torch.Tensor:
+                        count: int, layout=None) -> torch.Tensor:
     """One step of a stacked ensemble: (G, N, ...) batches, each group an
     independent model on its own slice. Returns the (G,) losses."""
     return torch.stack([
         train_step(m, o, {k: v[g] for k, v in batch.items()}, cfg=cfg,
-                   count=count)
+                   count=count, layout=layout)
         for g, (m, o) in enumerate(zip(models, optimizers))])
 
 
-def build_sharded_train_step(*args, **kwargs):
-    """The reference's mesh-sharded step (data / model / ensemble axes)."""
-    raise NotImplementedError(f'build_sharded_train_step {_PARALLEL}')
+def build_sharded_train_step(mesh, spec: ArchSpec, cfg: TrainConfig, params,
+                             *, ensemble: bool = False, spatial: bool = False,
+                             device=None):
+    """The step sharded over ``mesh`` (training/sharded.py). ``params``: a
+    full state dict, or for ``ensemble`` a list of them (the stack), the
+    same on every rank. Returns ``(step_fn, models, optimizers, layout)``:
+    this rank's models holding their shards, their SGD optimizers (the
+    momentum beside the shards), the layout that gathers and slices them;
+    ``step_fn(batch, count)`` takes this rank's rows (a (G_local, ...)
+    stack of them for an ensemble) and returns the global loss, or the (G,)
+    losses. The reference returns (step, params, opt_state, optax
+    optimizer) of one jitted program."""
+    from ..parallel.mesh import check_mesh
+    from .sharded import SPATIAL, ShardLayout
+    if spatial:
+        raise NotImplementedError(SPATIAL)
+    check_mesh(mesh)
+    sds = list(params) if ensemble else [params]
+    layout = ShardLayout(mesh, len(sds), ensemble)
+    dev = resolve_device(device)
+    models = []
+    for i in layout.members:
+        model = UNet(spec)
+        layout.load_local(model, sds[i])
+        models.append(model.to(dev).train())
+    optimizers = [make_optimizer(cfg, m.parameters()) for m in models]
+
+    def step_fn(batch, count):
+        if not ensemble:
+            return train_step(models[0], optimizers[0], batch, cfg=cfg,
+                              count=count, layout=layout)
+        return layout.gather_losses(ensemble_train_step(
+            models, optimizers, batch, cfg=cfg, count=count, layout=layout))
+
+    return step_fn, models, optimizers, layout
 
 
 def unpack_target(packed: torch.Tensor, n_labels: int) -> torch.Tensor:
@@ -154,7 +195,7 @@ def unpack_target(packed: torch.Tensor, n_labels: int) -> torch.Tensor:
 
 
 class Trainer:
-    """The training loop on one device, with ``torch.save`` checkpoints.
+    """The training loop, with ``torch.save`` checkpoints.
 
     Batches may carry the one-hot target as ``'target'`` (N, H, W, L) uint8
     or as ``'target_packed'`` bit-plane bytes (``data.pack_target_np``),
@@ -162,26 +203,45 @@ class Trainer:
     arrays or tensors. Weights are drawn from a ``torch.Generator`` seeded
     with ``seed`` on the CPU, so a seed gives the same model on any device;
     augmentation draws from its own generator seeded with ``seed ^
-    0x5EED``."""
+    0x5EED``.
+
+    With ``mesh`` every rank of the mesh constructs the trainer and steps
+    with the same global batch: each augments it alike (one generator
+    state), takes its rows and its models, and trains its shards
+    (training/sharded.py); ``step`` returns the global loss on every rank.
+    ``params``, :meth:`save_checkpoint` and :meth:`restore_checkpoint` are
+    collectives: the whole weights in the single-device layout, written by
+    rank 0, sliced back on restore, so a checkpoint moves between sharded
+    and unsharded trainers."""
 
     def __init__(self, spec: ArchSpec, cfg: TrainConfig, mesh=None,
                  seed: int = 0, ensemble_size: Optional[int] = None,
                  spatial: bool = False, device=None):
-        if mesh is not None or spatial:
-            raise NotImplementedError(f'Trainer(mesh=, spatial=) {_PARALLEL}')
+        if spatial:
+            from .sharded import SPATIAL
+            raise NotImplementedError(SPATIAL)
         self.spec = spec
         self.cfg = cfg
         self.device = resolve_device(device)
         self.step_count = 0
         self._ensemble = bool(ensemble_size)
+        self._n_models = int(ensemble_size) if ensemble_size else 1
         gen = torch.Generator().manual_seed(int(seed))
-        self.models: List[UNet] = []
-        for _ in range(int(ensemble_size) if ensemble_size else 1):
-            model = UNet(spec)
-            load_into(model, init_params(gen, spec))
-            self.models.append(model.to(self.device).train())
-        self.optimizers = [make_optimizer(cfg, m.parameters())
-                           for m in self.models]
+        sds = [init_params(gen, spec) for _ in range(self._n_models)]
+        self._layout = None
+        if mesh is not None:
+            (self._step, self.models, self.optimizers,
+             self._layout) = build_sharded_train_step(
+                mesh, spec, cfg, sds if self._ensemble else sds[0],
+                ensemble=self._ensemble, device=self.device)
+        else:
+            self.models: List[UNet] = []
+            for sd in sds:
+                model = UNet(spec)
+                load_into(model, sd)
+                self.models.append(model.to(self.device).train())
+            self.optimizers = [make_optimizer(cfg, m.parameters())
+                               for m in self.models]
         self._aug_gen = torch.Generator().manual_seed(int(seed) ^ 0x5EED)
         # the exact numerics class (no TF32, fixed cuDNN algorithms) for as
         # long as this trainer lives; released by close()
@@ -201,13 +261,36 @@ class Trainer:
 
     @property
     def model(self) -> UNet:
+        """The (first) model this rank holds: its shards under a mesh."""
         return self.models[0]
 
     @property
     def params(self):
-        """The state dict (a list of them for an ensemble)."""
-        sds = [m.state_dict() for m in self.models]
+        """The whole state dict (a list of them for an ensemble); under a
+        mesh a collective that gathers the shards."""
+        sds = self._full_state()[0]
         return sds if self._ensemble else sds[0]
+
+    def _full_state(self):
+        """(every model's whole state dict, its optimizer's whole state
+        dict), in stack order."""
+        if self._layout is None:
+            return ([m.state_dict() for m in self.models],
+                    [o.state_dict() for o in self.optimizers])
+        lay = self._layout
+        sds, moms, osds = [], [], []
+        for m, o in zip(self.models, self.optimizers):
+            names = [n for n, _ in m.named_parameters()]
+            sds.append({n: lay.full(n, p) for n, p in m.named_parameters()})
+            osd = o.state_dict()
+            moms.append({str(i): lay.full(names[i], st['momentum_buffer'])
+                         for i, st in osd['state'].items()})
+            osds.append(osd)
+        sds, moms = lay.gather_models(sds), lay.gather_models(moms)
+        opts = [{'state': {int(i): {'momentum_buffer': b}
+                           for i, b in mom.items()},
+                 'param_groups': osds[0]['param_groups']} for mom in moms]
+        return sds, opts
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
@@ -230,12 +313,15 @@ class Trainer:
                 # each group draws its own augmentations
                 parts = [augment_batch(self._aug_gen,
                                        {k: v[g] for k, v in batch.items()})
-                         for g in range(len(self.models))]
+                         for g in range(self._n_models)]
                 batch = {k: torch.stack([p[k] for p in parts])
                          for k in parts[0]}
             else:
                 batch = augment_batch(self._aug_gen, batch)
-        if self._ensemble:
+        if self._layout is not None:
+            batch = {n: self._layout.take(v) for n, v in batch.items()}
+            loss = self._step(batch, self.step_count)
+        elif self._ensemble:
             loss = ensemble_train_step(self.models, self.optimizers, batch,
                                        cfg=self.cfg, count=self.step_count)
         else:
@@ -249,25 +335,42 @@ class Trainer:
     def save_checkpoint(self, path: str) -> None:
         """Write the training state to the file ``path`` (``torch.save``):
         parameters, momentum buffers, the step count and the augmentation
-        generator's state, so a restore resumes bit for bit."""
-        state = {'params': [m.state_dict() for m in self.models],
-                 'optimizers': [o.state_dict() for o in self.optimizers],
-                 'step': self.step_count,
-                 'augment_generator': self._aug_gen.get_state()}
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        tmp = path + '.tmp'
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        generator's state, so a restore resumes bit for bit. Under a mesh
+        every rank calls it: the shards are gathered and rank 0 writes the
+        single-device layout."""
+        params, opts = self._full_state()
+        if self._layout is None or dist.get_rank() == 0:
+            state = {'params': params, 'optimizers': opts,
+                     'step': self.step_count,
+                     'augment_generator': self._aug_gen.get_state()}
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            tmp = path + '.tmp'
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        if self._layout is not None:
+            dist.barrier()
 
     def restore_checkpoint(self, path: str) -> None:
+        """Load a :meth:`save_checkpoint` file, sharded or not; under a mesh
+        each rank takes its models and slices."""
         state = torch.load(path, map_location=self.device, weights_only=True)
-        if len(state['params']) != len(self.models):
+        if len(state['params']) != self._n_models:
             raise ValueError(f'checkpoint {path!r} holds '
                              f'{len(state["params"])} models, this trainer '
-                             f'{len(self.models)}')
-        for m, sd in zip(self.models, state['params']):
+                             f'{self._n_models}')
+        lay = self._layout
+        members = lay.members if lay is not None else range(self._n_models)
+        for m, o, i in zip(self.models, self.optimizers, members):
+            sd, osd = state['params'][i], state['optimizers'][i]
+            if lay is not None:
+                names = [n for n, _ in m.named_parameters()]
+                sd = lay.shard(sd)
+                osd = dict(osd, state={
+                    j: {'momentum_buffer': lay.local(
+                        names[j], st['momentum_buffer'])}
+                    for j, st in osd['state'].items()})
             m.load_state_dict(sd)
-        for o, sd in zip(self.optimizers, state['optimizers']):
-            o.load_state_dict(sd)
+            o.load_state_dict(osd)
         self.step_count = int(state['step'])
         self._aug_gen.set_state(state['augment_generator'].cpu())
