@@ -44,8 +44,13 @@ print only at the end):
    give the same masks, and the fast/exact mask agreement is printed.
 4. The port on the GPU against the port on the CPU (plain kernel versions)
    at a reduced architecture: mask agreement >= 0.999 exact, >= 0.99 fast.
-5. A set whose groups disagree on precision, through the per-model engines
-   on the card: both kernels must run.
+5. A set whose groups disagree on precision, at the flagship width,
+   through the per-model engines on the card: both kernels must run.
+   Before it, the set's two ``HostedModel``s start on the card with
+   ``start(wait=False)`` (each on its own thread, with its warm-up predict
+   at the 256^2 patch) and ``await_startup()``: the seconds of both, and
+   the fused block's launches in the 'fast' model's warm-up, which must
+   be one forward batch's (16).
 6. Serving at full width, at 'exact' and 'fast': (a) 8 phantoms (seeds
    7-14, one geometry) through ``predict_array_async`` in one 8-scan
    batched program, with the launch counts set to 0 just before it and
@@ -143,7 +148,15 @@ print only at the end):
    (>= 0.9999), a fp32 flagship ``Trainer(mesh={'data': 2})`` step at
    batch 16 and a ``{'model': 2}`` step at batch 2, two steps each,
    against one rank's losses (rtol 1e-6: one step moves the loss by about
-   4e-4 of itself, so a gradient that misses a rank's share shows); per rank the seconds of
+   4e-4 of itself, so a gradient that misses a rank's share shows), the
+   height-sharded ``Trainer(mesh={'data': 1, 'model': 2}, spatial=True)``
+   at batch 2 (fp32, two steps, against the same one-rank losses as the
+   model=2 step, rtol 1e-6) and in bf16 with the augmentation recipe at
+   batch 16 against one rank's bf16 augmented losses (rtol 1e-3: every
+   rank must draw the global batch's augmentation as one rank does before
+   it takes its slab; the prefilter runs the warp stack (6, 256, 256, 2)
+   on each: 2 launches per step beside the low-resolution levels', fused
+   block 0); per rank the seconds of
    each call, the kernels' launches (both kernels on every rank: prefilter
    2, fused block 80 per fast scan and per fast cohort share) and peak
    memory. Phase 2 holds both kernels at a rank's shapes: the fused block
@@ -1002,12 +1015,49 @@ def gpu_vs_cpu(precision, bar):
 
 # -- 5. a set that does not fuse: the per-model engines ----------------------
 
+def hosted_start(db):
+    """The mixed set's flagship-width HostedModels started on the card
+    without waiting (each loads and runs its warm-up predict at the 256^2
+    patch on its own thread), then awaited, with the launch counts set to
+    0 just before and read just after: the 'fast' model's warm-up is one
+    forward batch (1 tile x 4 mirrors), so it launches the fused block
+    once per fused layer of the flagship U-Net, the 'exact' one never."""
+    from totalsegmentator2d_tpu_torch.inference import Zoo
+    zoo = Zoo(remote=False, local=db)
+    models = [zoo.load(i) for i in zoo.resolve('ts2d-v9-mixed',
+                                               unique_model=True)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for m in models:
+        m.start(wait=False)
+    for m in models:
+        m.await_startup()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ran = read_launches()
+    print(f'HostedModel.start(wait=False) + await_startup() of '
+          f'{[(m.name, m.precision) for m in models]}: {dt:.3f} s with the '
+          f'warm-up predicts at {models[0].spec.preprocess.patch_size}; '
+          f'launches {ran}')
+    want = len(fused_launches(FLAGSHIP)) * sum(m.precision == 'fast'
+                                               for m in models)
+    if not all(m.started for m in models) or \
+            ran['fused_norm_act_conv'] != want:
+        raise SystemExit(f'hosted models did not warm up: launches {ran}, '
+                         f'{want} fused launches expected')
+    for m in models:
+        m.stop()
+
+
 def per_model_path():
     phase('per-model path: groups that disagree on precision')
     db = os.path.join(WORK, 'db_mixed')
-    write_database(db, 'ts2d-v9-mixed', {'cardiac': 3, 'ribs': 4}, SMALL,
-                   seed=300, precision={'cardiac': 'fast', 'ribs': 'exact'})
+    write_database(db, 'ts2d-v9-mixed', {'cardiac': 3, 'ribs': 4},
+                   FLAGSHIP, seed=300,
+                   precision={'cardiac': 'fast', 'ribs': 'exact'})
     scan = torso_ct((150, 96, 110), (0.9, 0.9, 2.0), seed=12)
+    hosted_start(db)
     with TS2D(key='ts2d-v9-mixed', use_remote=False, local=db) as tool:
         if tool._fused is not None or not all(
                 m.started for m in tool.models.values()):
@@ -2245,7 +2295,6 @@ def train_timed(spec, cases, dtype):
     low-resolution levels' share of the prefilter's launches is counted
     around each level (the rest are the warp stack's). Returns (s/step
     median, peak GiB, {call site: prefilter launches per step}, losses)."""
-    from totalsegmentator2d_tpu_torch.training import augment as AUG
     from totalsegmentator2d_tpu_torch.training import (PatchSampler,
                                                        TrainConfig, Trainer)
     cfg = TrainConfig(total_steps=100, augment=True, deep_supervision=True,
@@ -2258,17 +2307,8 @@ def train_timed(spec, cases, dtype):
         tr.step(b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, losses, lowres = [], [], [0]
-    level = AUG.lowres_level
-
-    def counted_level(x, z):
-        before = PF.bspline_prefilter_cuda.launches
-        out = level(x, z)
-        lowres[0] += PF.bspline_prefilter_cuda.launches - before
-        return out
-
-    AUG.lowres_level = counted_level
-    try:
+    times, losses = [], []
+    with lowres_launches() as lowres:
         reset_launches()
         for b in batches[2:]:
             t0 = time.perf_counter()
@@ -2276,8 +2316,6 @@ def train_timed(spec, cases, dtype):
             times.append(time.perf_counter() - t0)
             losses.append(loss)
         ran = read_launches()
-    finally:
-        AUG.lowres_level = level
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tr.close()
     del tr
@@ -2528,11 +2566,13 @@ def par_batch(n):
             'target': np.stack([one_hot(c[1]) for c in cases])}
 
 
-def par_train(mesh, batch, steps=2):
-    """(losses, s of the last step) of a fp32 flagship Trainer, seed 0."""
+def par_train(mesh, batch, steps=2, spatial=False, **cfg):
+    """(losses, s of the last step) of a flagship Trainer, seed 0 (fp32
+    unless ``cfg`` says otherwise)."""
     from totalsegmentator2d_tpu_torch.training import TrainConfig, Trainer
-    tr = Trainer(flagship_train_spec().arch, TrainConfig(total_steps=10),
-                 mesh=mesh, seed=0)
+    tr = Trainer(flagship_train_spec().arch,
+                 TrainConfig(total_steps=10, **cfg), mesh=mesh, seed=0,
+                 spatial=spatial)
     losses = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2540,6 +2580,27 @@ def par_train(mesh, batch, steps=2):
         dt = time.perf_counter() - t0
     tr.close()
     return losses, dt
+
+
+@contextlib.contextmanager
+def lowres_launches():
+    """Counts the prefilter's launches inside augmentation's low-resolution
+    levels (the rest of a step's are the warp stack's): yields a list whose
+    one entry grows."""
+    from totalsegmentator2d_tpu_torch.training import augment as AUG
+    count, level = [0], AUG.lowres_level
+
+    def counted_level(x, z):
+        before = PF.bspline_prefilter_cuda.launches
+        out = level(x, z)
+        count[0] += PF.bspline_prefilter_cuda.launches - before
+        return out
+
+    AUG.lowres_level = counted_level
+    try:
+        yield count
+    finally:
+        AUG.lowres_level = level
 
 
 def timed(fn):
@@ -2555,8 +2616,9 @@ def timed(fn):
 def rank_main(rank, world, port):
     """One gloo rank of phase 11 (``chip_smoke.py --rank r --world n
     --port p``): the tile-sharded scan at 'exact' and 'fast', cohort data
-    parallelism and predict_cohort_distributed, a data=2 and a model=2
-    training step; writes its masks and numbers under PAR."""
+    parallelism and predict_cohort_distributed, a data=2, a model=2 and
+    two height-sharded training steps, the peak memory of each; writes its
+    masks and numbers under PAR."""
     import torch.distributed as dist
 
     from totalsegmentator2d_tpu_torch.parallel import (
@@ -2591,12 +2653,27 @@ def rank_main(rank, world, port):
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-    for name, axes, n in (('train_data2', {'data': world}, PAR_BATCH),
-                          ('train_model2', {'model': world}, 2)):
-        (losses, dt), _, ran = timed(lambda: par_train(make_mesh(axes),
-                                                      par_batch(n)))
-        res[name] = {'losses': losses, 's': dt, 'launches': ran}
-    res['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = 0.0
+    sp = {'data': 1, 'model': world}
+    for name, axes, n, kw in (
+            ('train_data2', {'data': world}, PAR_BATCH, {}),
+            ('train_model2', {'model': world}, 2, {}),
+            ('train_spatial2', sp, 2, {'spatial': True}),
+            ('train_spatial2_aug', sp, TRAIN_BATCH,
+             {'spatial': True, 'compute_dtype': 'bfloat16',
+              'augment': True})):
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch = par_batch(n)
+        with lowres_launches() as lowres:
+            (losses, dt), _, ran = timed(lambda: par_train(make_mesh(axes),
+                                                          batch, **kw))
+        res[name] = {'losses': losses, 's': dt, 'launches': ran,
+                     'lowres': lowres[0],
+                     'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    res['peak_gib'] = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
     np.savez(os.path.join(PAR, f'rank{rank}.npz'), **arrays)
     with open(os.path.join(PAR, f'rank{rank}.json'), 'w') as f:
         json.dump(res, f)
@@ -2680,7 +2757,14 @@ def parallel_phase(db, smi):
     gc.collect()
     torch.cuda.empty_cache()
     refs['train_data2'] = par_train(None, par_batch(PAR_BATCH))[0]
-    refs['train_model2'] = par_train(None, par_batch(2))[0]
+    # the model=2 and the fp32 height-sharded steps, batch 2, both held here
+    refs['train_model2'] = refs['train_spatial2'] = par_train(
+        None, par_batch(2))[0]
+    # the bf16 augmented height-sharded step: every rank must draw the
+    # global batch's augmentation as one rank does before taking its slab
+    refs['train_spatial2_aug'] = par_train(
+        None, par_batch(TRAIN_BATCH), compute_dtype='bfloat16',
+        augment=True)[0]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2726,17 +2810,31 @@ def parallel_phase(db, smi):
             if ran['bspline_prefilter'] < 1 or (
                     ran['fused_norm_act_conv'] < 1) != ('fast' not in name):
                 raise SystemExit(f'rank {r} {name}: launches {ran}')
-        for name, rtol in (('train_data2', 1e-6), ('train_model2', 1e-6)):
+        for name, rtol in (('train_data2', 1e-6), ('train_model2', 1e-6),
+                           ('train_spatial2', 1e-6),
+                           ('train_spatial2_aug', 1e-3)):
             got, want = res[name]['losses'], refs[name]
             rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
             print(f'rank {r} {name}: losses {got} against one rank {want}, '
-                  f'max rel diff {rel:.3g}, last step {res[name]["s"]:.4f} s '
-                  f'[{smi}]')
+                  f'max rel diff {rel:.3g}, last step {res[name]["s"]:.4f} s, '
+                  f'peak {res[name]["peak_gib"]:.2f} GiB [{smi}]')
             if rel > rtol:
                 raise SystemExit(f'rank {r} {name}: losses differ by {rel}')
+        aug = res['train_spatial2_aug']
+        ran, steps = aug['launches'], len(aug['losses'])
+        aug['warp'] = (ran['bspline_prefilter'] - aug['lowres']) / steps
+        print(f'rank {r} train_spatial2_aug (bf16, augment, batch '
+              f'{TRAIN_BATCH}): launches {ran} over {steps} steps '
+              f'(prefilter per step: warp stack {aug["warp"]:g}, low-res '
+              f'levels {aug["lowres"] / steps:g}), peak '
+              f'{aug["peak_gib"]:.2f} GiB [{smi}]')
+        if aug['warp'] != 2 or ran['fused_norm_act_conv']:
+            raise SystemExit(f'rank {r} train_spatial2_aug: launches {ran}')
         print(f'rank {r}: peak memory {res["peak_gib"]:.2f} GiB [{smi}]')
-    return [{name: res[name]['launches'] for name in
-             ('tile_fast', 'cohort_fast')} for res in results]
+    return [{**{name: res[name]['launches'] for name in
+                ('tile_fast', 'cohort_fast')},
+             'spatial_warp': round(res['train_spatial2_aug']['warp'])}
+            for res in results]
 
 
 def parallel_inputs(scans):
@@ -2811,6 +2909,10 @@ def main(phases=PHASES):
         # per rank of phase 11 (the fewest of the ranks)
         prefilter.setdefault('cohort_rank', {})['launches'] = min(
             r['cohort_fast']['bspline_prefilter'] for r in per_rank)
+        # the height-sharded step's warp stack, per rank and step: the
+        # shape of phase 10's (train_warp), timed there in phase 2
+        prefilter.setdefault('train_warp', {})['spatial_rank_launches'] = \
+            min(r['spatial_warp'] for r in per_rank)
         for key, call in (('tile_rank', 'tile_fast'),
                           ('cohort_rank', 'cohort_fast')):
             fused.setdefault(key, {})['launches'] = min(

@@ -4,6 +4,8 @@ bit-packed mask wire. Same numpy inputs into both; float results at
 rtol 1e-5 / atol 1e-6 (float32 with other reduction orders), host-built
 arrays exactly."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,9 @@ from totalsegmentator2d_tpu_torch.inference import program as PP
 from totalsegmentator2d_tpu_torch.inference import tiling as PT
 from totalsegmentator2d_tpu_torch.ops import gaussian as PG
 from totalsegmentator2d_tpu_torch.ops import normalize as PN
-from totalsegmentator2d_tpu_torch.ops import resample as PR
+
+# the package exports the function ``resample``, which hides the module
+PR = importlib.import_module('totalsegmentator2d_tpu_torch.ops.resample')
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

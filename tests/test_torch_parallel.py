@@ -16,11 +16,12 @@ and 4 ranks, >= 0.9999 against the port's solo program (the reference's
 bar, test_023:132-139) and >= 0.999 against the reference's ``tile_mesh``
 engine on as many virtual devices, every rank the same masks, ceil(T/D)
 tiles per rank; the errors of a mesh that does not span the world or lacks
-the tile axis; the ``dryrun_multichip`` analogue on 8 ranks (its five OK
+the tile axis; the ``dryrun_multichip`` analogue on 8 ranks (its six OK
 lines).
 
-Files test_torch_parallel_cohort.py and test_torch_parallel_train.py use
-:func:`launch` and :func:`rank_main` of this one; the reference package is
+Files test_torch_parallel_cohort.py, test_torch_parallel_train.py and
+test_torch_parallel_spatial.py use :func:`launch` and :func:`rank_main` of
+this one; the reference package is
 imported inside fixtures only, since every file here is also a rank's
 script."""
 
@@ -393,21 +394,32 @@ def test_ensemble_helpers_match_reference():
 
 
 def test_refusals():
-    """spatial=True names its slice; tile_mesh with auto_batch raises as the
-    reference's does; a mesh that is not a mesh is refused."""
+    """spatial=True over a mesh with a 'model' axis and no 'data' axis
+    raises ValueError, as the reference's batch sharding does (a world-1
+    gloo group in this process); tile_mesh with auto_batch raises as the
+    reference's does; a mesh needs an initialized world."""
+    import torch.distributed as dist
+
     from totalsegmentator2d_tpu_torch.models.plans import ArchSpec
+    from totalsegmentator2d_tpu_torch.parallel import (init_distributed,
+                                                       make_mesh)
     from totalsegmentator2d_tpu_torch.training import TrainConfig, Trainer
     spec = ArchSpec(n_stages=2, features_per_stage=(4, 8),
                     kernel_sizes=((3, 3),) * 2, strides=((1, 1), (2, 2)),
                     n_conv_per_stage=(1, 1), n_conv_per_stage_decoder=(1,),
                     in_channels=1, out_channels=2)
-    with pytest.raises(NotImplementedError, match='spatial slice'):
-        Trainer(spec, TrainConfig(), spatial=True, device='cpu')
     with pytest.raises(ValueError, match='auto_batch cannot be combined'):
         port_engine(engine_inputs(), auto_batch=4, tile_mesh=object())
-    from totalsegmentator2d_tpu_torch.parallel import make_mesh
     with pytest.raises(RuntimeError, match='initialized torch.distributed'):
         make_mesh({'data': 1}, device='cpu')
+    init_distributed(f'localhost:{_free_port()}', 1, 0, device='cpu')
+    try:
+        with pytest.raises(ValueError, match="no 'data' axis"):
+            Trainer(spec, TrainConfig(), mesh=make_mesh({'model': 1},
+                                                        device='cpu'),
+                    spatial=True, device='cpu')
+    finally:
+        dist.destroy_process_group()
 
 
 def test_rank_device_keeps_the_callers_device(monkeypatch):
@@ -503,7 +515,7 @@ def test_tile_sharded_scan(tmp_path, tile_inputs, world):
 def test_dryrun_analogue_on_8_ranks(tmp_path):
     out = launch(__file__, 'dryrun', 8, tmp_path)[0]
     oks = [ln for ln in out.splitlines() if ln.startswith('dryrun_multichip OK')]
-    assert len(oks) == 5, out
-    for mode in ('ep/dp/tp', 'augmented', 'cohort dp', 'mixed-shape',
-                 'tile-sharded'):
+    assert len(oks) == 6, out
+    for mode in ('ep/dp/tp', 'ep/dp/sp', 'augmented', 'cohort dp',
+                 'mixed-shape', 'tile-sharded'):
         assert any(mode in ln for ln in oks), (mode, oks)

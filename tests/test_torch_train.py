@@ -355,9 +355,17 @@ def test_config_and_parallel_refusals():
                  lambda: T.build_sharded_train_step(None, None, None, None)):
         with pytest.raises(TypeError, match='DeviceMesh'):
             call()
-    with pytest.raises(NotImplementedError, match='spatial slice'):
-        T.Trainer(ArchSpec(**SMALL), T.TrainConfig(), spatial=True,
-                  device='cpu')
+    # spatial=True without a mesh trains unsharded, as the reference's
+    # Trainer does: step for step the spatial=False trainer's
+    rng = np.random.default_rng(4)
+    batches = _batches(rng, 3, size=2)
+    plain, spatial = (T.Trainer(ArchSpec(**SMALL), T.TrainConfig(), seed=2,
+                                spatial=sp, device='cpu')
+                      for sp in (False, True))
+    for b in batches:
+        assert float(plain.step(b)) == float(spatial.step(b))
+    for k, v in plain.params.items():
+        assert torch.equal(v, spatial.params[k]), k
 
 
 # -- the trainer loop ----------------------------------------------------------------

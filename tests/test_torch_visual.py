@@ -6,6 +6,8 @@ intensity visuals within one gray level on every pixel and equal on
 window, palette, label colours, orientation code). The visuals run on the
 card unless the caller names the CPU."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,10 +20,13 @@ from totalsegmentator2d_tpu.ops.resample import resample_uniform as jax_resample
 from totalsegmentator2d_tpu.ops import visual as jax_visual
 from totalsegmentator2d_tpu.utils import colors as jax_colors
 from totalsegmentator2d_tpu_torch.io import MedicalImage
-from totalsegmentator2d_tpu_torch.ops import geometry, normalize, resample, visual
+from totalsegmentator2d_tpu_torch.ops import geometry, normalize, visual
 from totalsegmentator2d_tpu_torch.ops.annotations import set_annotation_meta
 from totalsegmentator2d_tpu_torch.ops.cuda.prefilter import bspline_prefilter_cuda
 from totalsegmentator2d_tpu_torch.utils import colors
+
+# the package exports the function ``resample``, which hides the module
+resample = importlib.import_module('totalsegmentator2d_tpu_torch.ops.resample')
 
 
 def _pair(arr, spacing, origin=None, direction=None, is_vector=False, meta=None):

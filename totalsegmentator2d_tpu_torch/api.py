@@ -163,8 +163,10 @@ class TS2D:
             if self._pad_quantum is not None:
                 warn('pad_quantum requires the fused ensemble engine; the '
                      'per-model engines run the exact per-shape programs')
+            for m in models:   # every model loads and warms up at once
+                m.start(self.device, wait=False)
             for m in models:
-                m.start(self.device)
+                m.await_startup()
         return engine
 
     # -- lifecycle ---------------------------------------------------------

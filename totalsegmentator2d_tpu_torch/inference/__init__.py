@@ -4,7 +4,8 @@ micro-batcher, the per-model engine, and the host runtime (async runner,
 pipelined directory mode)."""
 
 from .batching import DynamicBatcher
-from .database import FileDataBase, URLDataBase, decompose_model_key
+from .database import (DataBase, FileDataBase, URLDataBase,
+                       decompose_model_key)
 from .engine import InferenceEngine
 from .ensemble_engine import EnsembleEngine
 from .model import HostedModel
@@ -12,6 +13,6 @@ from .pipeline import ScanPipeline
 from .runner import AsyncRunner
 from .zoo import Zoo
 
-__all__ = ['AsyncRunner', 'DynamicBatcher', 'FileDataBase', 'URLDataBase',
-           'decompose_model_key', 'EnsembleEngine', 'HostedModel',
+__all__ = ['AsyncRunner', 'DynamicBatcher', 'DataBase', 'FileDataBase',
+           'URLDataBase', 'decompose_model_key', 'EnsembleEngine', 'HostedModel',
            'InferenceEngine', 'ScanPipeline', 'Zoo']

@@ -12,12 +12,13 @@ engine keeps them; ``compute_dtype=torch.bfloat16`` runs the U-Nets bf16.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..models.plans import ModelSpec
-from .program import ScanEngine
+from .program import ScanEngine, compute_new_shape  # noqa: F401
 
 
 class InferenceEngine(ScanEngine):
@@ -57,3 +58,14 @@ class InferenceEngine(ScanEngine):
         if self.spec.multilabel:
             return (torch.sigmoid(logits) > 0.5).to(torch.uint8).movedim(-3, -1)
         return torch.argmax(logits, dim=-3).to(torch.uint8)
+
+    def warmup(self, in_shape: Sequence[int],
+               in_spacing: Optional[Sequence[float]] = None) -> None:
+        """Build and run the program of an (H, W) input once (the
+        reference's startup dummy predict): zeros at ``in_spacing``, the
+        plan's spacing by default."""
+        if in_spacing is None:
+            in_spacing = self.spec.preprocess.spacing
+        dummy = np.zeros(tuple(in_shape) + (self.spec.arch.in_channels,),
+                         np.float32)
+        self.predict_array(dummy, in_spacing)

@@ -8,15 +8,17 @@ nnu.predict.{augment,stepsize,checkpoint,precision}, nnu.result.colors.
 
 A model that does not fuse into the ensemble of its set runs on its own
 per-model engine (inference/engine.py): :meth:`HostedModel.start` loads it
-onto the device and :meth:`HostedModel.apply` segments a 2D image with it.
-The reference starts its engines on a thread; here :meth:`start` loads
-synchronously.
+onto the device and runs one warm-up predict at the patch size (the
+reference tool's startup dummy predict), on a thread when ``wait=False``
+(pair it with :meth:`HostedModel.await_startup`), and
+:meth:`HostedModel.apply` segments a 2D image with it.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,6 +52,8 @@ class HostedModel:
     def __init__(self, config: dict):
         param = config.get('param', {})
         self.id: str = config.get('id', '')
+        self.model_name: str = config.get('model', self.id)
+        self.group: Optional[str] = config.get('group')
         self.revision = config.get('revision')
 
         self.version = dict_get(param, 'nnu.version', default=2, dtype=int)
@@ -73,6 +77,9 @@ class HostedModel:
         self.result_colors = dict_get(param, 'nnu.result.colors', default='ts2d')
         self._fold_params: Optional[List[Dict[str, torch.Tensor]]] = None
         self._engine: Optional[InferenceEngine] = None
+        self._start_lock = threading.Lock()
+        self._startup_thread: Optional[threading.Thread] = None
+        self._startup_error: Optional[BaseException] = None
         self._configure(config['root'])
 
     def _configure(self, root: str) -> None:
@@ -109,6 +116,34 @@ class HostedModel:
         # spec without checkpoint meta first; refined after weights load
         self.spec: ModelSpec = parse_model_spec(
             self.plans, self.dataset_json, configuration=self.configuration)
+
+    # -- identity / metadata ------------------------------------------------
+
+    @property
+    def uid(self) -> str:
+        return self.id
+
+    @property
+    def name(self) -> str:
+        return self.model_name
+
+    @staticmethod
+    def verify_setup() -> None:
+        """Check that this runtime can run the models on the CUDA card: a
+        CUDA build of torch with a device, and a kernel launched on it (the
+        reference's device check)."""
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f'No CUDA device is available (torch {torch.__version__}, '
+                f'CUDA {torch.version.cuda}): the models run on the CUDA '
+                f'card; pass device="cpu" to run them on the CPU')
+        t = torch.ones(1, device='cuda') + 1
+        if float(t) != 2.0:
+            raise RuntimeError('a CUDA kernel gave a wrong result')
+
+    def get_exts(self) -> list:
+        """Supported image file extensions (the reference tool's list)."""
+        return ['png', 'bmp', 'nii.gz', 'nrrd', 'mha', 'tif', 'tiff']
 
     @property
     def multilabel(self) -> bool:
@@ -177,14 +212,51 @@ class HostedModel:
             use_mirroring=self.use_mirroring,
             compute_dtype=self.compute_dtype(), device=device)
 
-    def start(self, device=None) -> None:
+    def start(self, device=None, wait: bool = True) -> None:
         """Load the per-model engine onto ``device`` (``None`` = the CUDA
-        card; ``'cpu'`` runs on the CPU); a started model stays as it is."""
-        if self._engine is None:
-            self._engine = self._load_engine(device)
+        card; ``'cpu'`` runs on the CPU) and run its warm-up predict at the
+        patch size, on a thread; ``wait=False`` returns at once (pair it
+        with :meth:`await_startup`). A started model stays as it is; a
+        start while a startup is pending joins it (``wait=True``) or
+        returns (``wait=False``): never a second load."""
+        def boot():
+            try:
+                engine = self._load_engine(device)
+                engine.warmup(self.spec.preprocess.patch_size)
+                self._engine = engine
+            except BaseException as ex:  # noqa: BLE001 (await_startup raises)
+                self._startup_error = ex
+
+        with self._start_lock:
+            if self._engine is None and self._startup_thread is None:
+                self._startup_thread = threading.Thread(target=boot,
+                                                        daemon=True)
+                self._startup_thread.start()
+        if wait:
+            self.await_startup()
+
+    def _join_startup(self) -> None:
+        with self._start_lock:
+            t = self._startup_thread
+        if t is not None:
+            t.join()
+            with self._start_lock:
+                if self._startup_thread is t:
+                    self._startup_thread = None
+
+    def await_startup(self) -> None:
+        """Wait for a pending :meth:`start`; raises RuntimeError (from the
+        cause) if it failed."""
+        self._join_startup()
+        if self._startup_error is not None:
+            err, self._startup_error = self._startup_error, None
+            raise RuntimeError(f'Model {self.id} failed to start') from err
 
     def stop(self) -> None:
-        """Release the engine and its device memory."""
+        """Release the engine and its device memory; a pending startup is
+        waited out first, so it cannot bring a stopped model back."""
+        self._join_startup()
+        self._startup_error = None
         self._engine = None
 
     @property
@@ -197,8 +269,9 @@ class HostedModel:
         """Segment a 2D (possibly multi-channel) image: a multilabel one-hot
         vector image (a labelmap for a softmax model) with Segment metadata,
         in the input geometry. Starts the engine on the CUDA card if
-        :meth:`start` was not called."""
-        self.start()
+        :meth:`start` was not called, and waits for a pending one."""
+        if self._engine is None:
+            self.start()
         if img.dim != 2:
             raise ValueError(f'apply() expects a 2D image, got dim={img.dim}')
         arr = img.array

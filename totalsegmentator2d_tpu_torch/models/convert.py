@@ -1,12 +1,17 @@
 """Weights into the :class:`~.unet.UNet` module.
 
- - :func:`load_checkpoint` reads an nnU-Net ``checkpoint_final.pth``. Its
+ - :func:`load_checkpoint` reads an nnU-Net ``checkpoint_final.pth``
+   (:func:`convert_checkpoint` also checks it against an architecture). Its
    state dict is nearly the module's own: conv weights are OIHW and
    transposed-conv weights IOHW in both. Key normalization drops the
    wrappers real checkpoints carry: ``module.`` (DDP), ``_orig_mod.``
    (torch.compile), the ``all_modules.N`` aliases, the decoder's
    back-reference to the encoder, and the extra ``.N`` level of the
-   encoder's stage Sequential.
+   encoder's stage Sequential (:func:`normalize_state_dict`, of a loaded
+   checkpoint :func:`extract_state_dict`). The reference turns that state
+   dict into its params pytree (:func:`state_dict_to_params`); here the
+   module's state dict is the params, and :func:`state_dict_to_params`
+   checks it against the architecture.
  - :func:`params_from_jax` carries the reference package's params pytree
    (numpy arrays; conv weights HWIO, transposed-conv weights HWOI) across,
    so both implementations can run the same weights.
@@ -67,11 +72,52 @@ def normalize_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
 def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Read a checkpoint file: (module state dict, checkpoint meta)."""
     ckpt = load_torch_checkpoint(path)
-    sd = ckpt.get('network_weights', ckpt.get('state_dict', ckpt))
     meta = {k: v for k, v in ckpt.items()
             if k in ('inference_allowed_mirroring_axes', 'trainer_name',
                      'current_epoch', 'init_args')}
-    return normalize_state_dict(sd), meta
+    return extract_state_dict(ckpt), meta
+
+
+def extract_state_dict(checkpoint: dict) -> Dict[str, torch.Tensor]:
+    """The normalized module state dict of a loaded checkpoint (its
+    ``network_weights``, ``state_dict`` or the dict itself)."""
+    return normalize_state_dict(
+        checkpoint.get('network_weights', checkpoint.get('state_dict',
+                                                         checkpoint)))
+
+
+def state_dict_to_params(sd: Dict[str, torch.Tensor], spec
+                         ) -> Dict[str, torch.Tensor]:
+    """The float32 weights of :class:`~.unet.UNet` for ``spec`` from a
+    normalized state dict: entries the module does not have are reported
+    and dropped; a missing or misshapen one raises ValueError."""
+    from .unet import UNet
+    with torch.device('meta'):
+        own = UNet(spec).state_dict()
+    unused = [k for k in sd if k not in own]
+    if unused:
+        warn(f'{len(unused)} checkpoint entries were not mapped '
+             f'(first: {unused[:3]})')
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise ValueError(f'{len(missing)} weights of the architecture are '
+                         f'missing (first: {missing[:3]})')
+    out = {}
+    for k, v in own.items():
+        t = torch.as_tensor(sd[k]).float()
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f'{k}: weight {tuple(t.shape)} does not match '
+                             f'the architecture {tuple(v.shape)}')
+        out[k] = t
+    return out
+
+
+def convert_checkpoint(path: str, spec) -> Tuple[Dict[str, torch.Tensor],
+                                                  dict]:
+    """Load and check a checkpoint file: (the UNet's state dict for
+    ``spec``, the checkpoint meta)."""
+    sd, meta = load_checkpoint(path)
+    return state_dict_to_params(sd, spec), meta
 
 
 def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:

@@ -34,10 +34,15 @@ accumulation through stock cuDNN convs, fp32 norm statistics, bf16 heads
 when ``head_dtype`` says so), by explicit casts that autograd goes
 through; the fused kernel has no backward, in either package. ``remat``
 recomputes the forward in the backward (``torch.utils.checkpoint``).
+Under a height ``group`` (training's ``spatial=True``) each rank holds a
+row slab of every activation: a 3x3 conv first takes its neighbours'
+border rows (:func:`halo_extent`, parallel/collectives.halo_rows) and
+InstanceNorm reduces its sums over the group.
 
 :meth:`UNet.forward` takes and returns NHWC, the layout of the reference
 package's ``forward``; the engines call :meth:`UNet.forward_nchw` to stay in
-cuDNN's layout between tiles.
+cuDNN's layout between tiles. :func:`forward` is the reference's functional
+form: a state dict and an NHWC batch in, NHWC logits out.
 
 :func:`init_params_np` is the reference's host initializer, bit for bit
 (numpy ``default_rng``, the reference's params pytree);
@@ -51,7 +56,7 @@ import contextlib
 import contextvars
 import math
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -129,10 +134,38 @@ def _one_pass_stats() -> bool:
     return _STATS_CTX.get() == '1pass'
 
 
+def _group_moments(x: torch.Tensor, group, one_pass: bool):
+    """The per-(n, c) mean and biased variance over the rows of every
+    rank's slab of ``group``: one reduction of [sum, sum of squares, count]
+    (one-pass), or of [sum, count] and then of the centred sum of squares
+    (two-pass)."""
+    from ..parallel.collectives import sum_stats
+    cnt = x.new_tensor([x.shape[2] * x.shape[3]])
+    s1 = x.sum(dim=(2, 3))
+    k = s1.numel()
+    if one_pass:
+        tot = sum_stats(torch.cat([s1.reshape(-1),
+                                   x.square().sum(dim=(2, 3)).reshape(-1),
+                                   cnt]), group)
+        n = tot[-1]
+        mean = (tot[:k] / n).view_as(s1)
+        var = torch.clamp((tot[k:2 * k] / n).view_as(s1) - mean.square(),
+                          min=0.0)
+    else:
+        tot = sum_stats(torch.cat([s1.reshape(-1), cnt]), group)
+        n = tot[-1]
+        mean = (tot[:k] / n).view_as(s1)
+        dev = (x - mean[:, :, None, None]).square().sum(dim=(2, 3))
+        var = sum_stats(dev, group) / n
+    return mean[:, :, None, None], var[:, :, None, None]
+
+
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over H, W: fp32 statistics with
     the biased variance, then the affine. The variance is two-pass (mean,
-    then the mean of squared deviations) unless :func:`_one_pass_stats`."""
+    then the mean of squared deviations) unless :func:`_one_pass_stats`.
+    Under a height ``group`` the statistics are those of every rank's rows
+    (:func:`_group_moments`)."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -140,13 +173,16 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        if _one_pass_stats():
-            var = torch.clamp(x.square().mean(dim=(2, 3), keepdim=True)
-                              - mean.square(), min=0.0)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        if group is not None:
+            mean, var = _group_moments(x, group, _one_pass_stats())
         else:
-            var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
+            mean = x.mean(dim=(2, 3), keepdim=True)
+            if _one_pass_stats():
+                var = torch.clamp(x.square().mean(dim=(2, 3), keepdim=True)
+                                  - mean.square(), min=0.0)
+            else:
+                var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight[:, None, None] + self.bias[:, None, None]
 
@@ -167,17 +203,28 @@ class ConvNormAct(nn.Module):
             x = self.norm(x)
         return F.leaky_relu(x, self.slope)
 
-    def forward_train(self, x: torch.Tensor,
-                      cdt: Optional[torch.dtype]) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, cdt: Optional[torch.dtype],
+                      group=None) -> torch.Tensor:
         """The differentiable block: fp32 (``cdt=None``), or bf16 conv
         operands with a bf16 output, fp32 norm statistics and bf16 storage
-        (the reference's ``_block`` with a compute dtype)."""
+        (the reference's ``_block`` with a compute dtype). ``group``: x is
+        this rank's row slab of a height-sharded activation."""
+        conv, padding = self.conv, self.conv.padding
+        if group is not None:
+            from ..parallel.collectives import halo_rows
+            above, below = halo_extent(conv)
+            if above or below:
+                x = halo_rows(x, above, below, group)
+            padding = (0, padding[1])
         if cdt is None:
-            return self.forward(x)
-        x = _conv_bf16(F.conv2d, x, self.conv.weight.to(BF16), self.conv.bias,
-                       stride=self.conv.stride, padding=self.conv.padding)
+            x = F.conv2d(x, conv.weight, conv.bias, conv.stride, padding)
+            if self.norm is not None:
+                x = self.norm(x, group)
+            return F.leaky_relu(x, self.slope)
+        x = _conv_bf16(F.conv2d, x, conv.weight.to(BF16), conv.bias,
+                       stride=conv.stride, padding=padding)
         if self.norm is not None:
-            x = self.norm(x.float()).to(BF16)
+            x = self.norm(x.float(), group).to(BF16)
         return _leaky(x, self.slope)
 
     def forward_fast(self, x: torch.Tensor) -> torch.Tensor:
@@ -187,6 +234,16 @@ class ConvNormAct(nn.Module):
         if self.norm is not None:
             x = self.norm(x.float()).to(BF16)
         return _leaky(x, self.slope)
+
+
+def halo_extent(conv: nn.Conv2d):
+    """(rows above, rows below) of its neighbours' slabs that ``conv``
+    needs at a height shard's borders, for slabs that start on a multiple
+    of its stride: output row j reads input rows s*j - p .. s*j - p + k - 1
+    (kernel k, stride s, padding p), so p rows above and k - p - s below (1
+    and 1 for a 3x3 stride-1 conv, 1 and 0 at stride 2, none for 1x1)."""
+    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    return p, max(0, k - p - s)
 
 
 class ConvStack(nn.Module):
@@ -205,10 +262,11 @@ class ConvStack(nn.Module):
         return self.convs(x)
 
     def forward_train(self, x: torch.Tensor, cdt: Optional[torch.dtype],
-                      gate: Gate = None) -> torch.Tensor:
+                      gate: Gate = None, group=None) -> torch.Tensor:
         gate = gate or _ungated
         for block in self.convs:
-            x = gate(block, lambda t, b=block: b.forward_train(t, cdt), x)
+            x = gate(block, lambda t, b=block: b.forward_train(t, cdt, group),
+                     x)
         return x
 
     def forward_fast(self, x: torch.Tensor) -> torch.Tensor:
@@ -307,9 +365,12 @@ class Decoder(nn.Module):
 
     def forward_train(self, skips: List[torch.Tensor],
                       cdt: Optional[torch.dtype], deep_supervision: bool,
-                      head_dtype: Optional[torch.dtype], gate: Gate = None):
+                      head_dtype: Optional[torch.dtype], gate: Gate = None,
+                      group=None):
         """The differentiable decoder; every head, highest resolution
-        first, under ``deep_supervision``, else the last one."""
+        first, under ``deep_supervision``, else the last one. The
+        transposed convs (kernel = stride) and the 1x1 heads need no halo
+        under a height ``group``."""
         gate = gate or _ungated
         x = skips[-1]
         n_dec = len(self.stages)
@@ -323,7 +384,7 @@ class Decoder(nn.Module):
                     F.conv_transpose2d, t, tc.weight.to(BF16), tc.bias,
                     stride=tc.stride), x)
             x = torch.cat([x, skips[n_dec - d - 1].to(x.dtype)], dim=1)
-            x = self.stages[d].forward_train(x, cdt, gate)
+            x = self.stages[d].forward_train(x, cdt, gate, group)
             if deep_supervision or d == n_dec - 1:
                 seg = self.seg_layers[d]
                 heads.append(gate(seg, lambda t: _head(seg, t, cdt,
@@ -396,7 +457,7 @@ class UNet(nn.Module):
                       compute_dtype: Optional[torch.dtype] = None,
                       deep_supervision: bool = False,
                       head_dtype: Optional[torch.dtype] = None,
-                      remat: bool = False, gate: Gate = None):
+                      remat: bool = False, gate: Gate = None, group=None):
         """The differentiable forward, (N, C_in, H, W) in: the logits
         (N, C_out, H, W), or with ``deep_supervision`` every head, highest
         resolution first (the reference's ``forward(params, x, spec,
@@ -405,7 +466,10 @@ class UNet(nn.Module):
         forward in the backward pass. ``gate(module, fn, t)`` runs each
         block, transposed conv and head as ``fn(t)`` (the default); the
         tensor-parallel trainer wraps its sharded modules in collectives
-        there (training/sharded.py)."""
+        there (training/sharded.py). ``group``: the height group of a
+        height-sharded trainer; x is this rank's row slab, which starts on
+        a multiple of the total stride and spans a multiple of it, and so
+        is every output."""
         if compute_dtype not in (None, BF16):
             raise ValueError(f'compute_dtype must be None or torch.bfloat16, '
                              f'got {compute_dtype}')
@@ -413,11 +477,11 @@ class UNet(nn.Module):
         def run(t):
             skips = []
             for stage in self.encoder.stages:
-                t = stage.forward_train(t, compute_dtype, gate)
+                t = stage.forward_train(t, compute_dtype, gate, group)
                 skips.append(t)
             out = self.decoder.forward_train(skips, compute_dtype,
                                              deep_supervision, head_dtype,
-                                             gate)
+                                             gate, group)
             return tuple(out) if deep_supervision else out
 
         out = (torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
@@ -456,6 +520,45 @@ class UNet(nn.Module):
         if deep_supervision:
             return [o.permute(0, 2, 3, 1) for o in out]
         return out.permute(0, 2, 3, 1)
+
+
+def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, spec: ArchSpec,
+            deep_supervision: bool = False,
+            compute_dtype: Optional[torch.dtype] = None,
+            head_dtype: Optional[torch.dtype] = None):
+    """The reference's functional ``forward``: the U-Net of ``spec`` with
+    the weights ``params`` (a state dict of :class:`UNet`, every entry) on
+    x (N, H, W, C_in), H and W divisible by the total stride. Returns the
+    logits (N, H, W, C_out), or with ``deep_supervision`` every head,
+    highest resolution first. ``compute_dtype=torch.bfloat16`` runs bf16
+    conv operands with fp32 accumulation and norms; ``head_dtype`` is the
+    heads' output dtype (fp32 when None). This is :meth:`UNet.
+    forward_train` on the given tensors, differentiable in x and in
+    ``params``."""
+    with torch.device('meta'):
+        net = UNet(spec)
+    net.forward = net.forward_train
+    out = torch.func.functional_call(
+        net, params, (x.permute(0, 3, 1, 2).contiguous(),),
+        {'compute_dtype': compute_dtype, 'deep_supervision': deep_supervision,
+         'head_dtype': head_dtype}, strict=True)
+    if deep_supervision:
+        return [o.permute(0, 2, 3, 1) for o in out]
+    return out.permute(0, 2, 3, 1)
+
+
+def param_count(params: Union[nn.Module, Dict[str, torch.Tensor]]) -> int:
+    """The number of weights of a state dict (or a module)."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    return sum(int(v.numel()) for v in params.values())
+
+
+def pad_to_stride(shape: Sequence[int], total_stride: Sequence[int],
+                  patch_size: Sequence[int]) -> Tuple[int, ...]:
+    """Smallest spatial shape >= max(shape, patch) divisible by the stride."""
+    return tuple(int(math.ceil(max(int(n), int(p)) / s) * s)
+                 for n, s, p in zip(shape, total_stride, patch_size))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,50 @@ from ..utils.colors import (color_str_to_rgb, named_palette,
 from ..utils.logging import warn
 
 
+def sanitize_meta(meta: dict) -> dict:
+    """Drop tags carrying large irrelevant payloads (the DICOM overlay
+    data tag the reference tool strips)."""
+    meta.pop('6000|3000', None)
+    return meta
+
+
+def get_image_meta(img: MedicalImage, add_info: bool = False,
+                   sanitize: bool = False) -> dict:
+    """The image's metadata as a dict; ``add_info`` adds its size, spacing,
+    direction, dimension, origin and pixel type."""
+    meta = dict(img.meta)
+    if add_info:
+        meta.update({
+            'size': img.size, 'spacing': img.spacing,
+            'direction': tuple(img.direction.reshape(-1)),
+            'dimension': img.dim, 'origin': img.origin,
+            'pixelid': str(img.array.dtype),
+        })
+    return sanitize_meta(meta) if sanitize else meta
+
+
+def set_image_meta(img: MedicalImage, meta: dict, limit: int = None,
+                   clear: bool = False) -> MedicalImage:
+    """Write ``meta`` as string metadata (each value cut to ``limit``
+    characters); ``clear`` drops the old metadata first."""
+    if clear:
+        img.meta = {}
+    for k, v in meta.items():
+        v = str(v)
+        if limit and len(v) > limit:
+            v = v[:limit]
+        img.meta[str(k)] = v
+    return img
+
+
+def copy_image_meta(dst: MedicalImage, src: MedicalImage) -> MedicalImage:
+    return dst.copy_meta_from(src)
+
+
+def copy_image_geo(dst: MedicalImage, src: MedicalImage) -> MedicalImage:
+    return dst.copy_geometry_from(src)
+
+
 def get_labels(seg: MedicalImage, bg: int = 0, fetch: bool = True) -> List[int]:
     """Sorted labels present in a segmentation. Multichannel: 1-based channel
     indices (optionally only those with any voxel set); scalar: unique values
@@ -166,6 +210,13 @@ def get_annotation_labels(seg: MedicalImage, fetch: bool = True,
             warn(f'Label: {name} is not unique')
         res[name] = info
     return res
+
+
+def get_label_names(seg: MedicalImage,
+                    fetch: bool = True) -> Dict[int, Optional[str]]:
+    """Label -> its Segment name (None where it has none)."""
+    meta = get_annotation_meta(seg, fetch=fetch)
+    return {label: m.get('Name') for label, m in meta.items()}
 
 
 def combine_segmentations(segs: List[MedicalImage]) -> MedicalImage:

@@ -38,7 +38,7 @@ import torch
 
 from . import count_launch
 
-_Z = float(np.sqrt(3.0) - 2.0)
+_Z = POLE = float(np.sqrt(3.0) - 2.0)
 _GAIN = (1.0 - _Z) * (1.0 - 1.0 / _Z)
 # taps of the causal-init series: |z|^HORIZON <= 1e-10
 HORIZON = int(math.ceil(math.log(1e-10) / math.log(abs(_Z))))
@@ -48,9 +48,10 @@ CHUNK = 32
 WARM = 18
 
 
-def horizon(n: int) -> int:
-    """Taps of the causal-init series for a line of n samples."""
-    return min(HORIZON, 2 * n - 2)
+def horizon(n: int, taps: int = HORIZON) -> int:
+    """Taps of the causal-init series for a line of n samples (of a series
+    truncated at ``taps``)."""
+    return min(taps, 2 * n - 2)
 
 
 def _f32(v: float) -> float:
@@ -77,20 +78,22 @@ def _check(x: torch.Tensor, axis: int) -> int:
     return axis % x.ndim
 
 
-def _causal_init(v: torch.Tensor, n: int) -> torch.Tensor:
+def _causal_init(v: torch.Tensor, n: int, taps: int) -> torch.Tensor:
     """s[0] of lines v (outer, n, ...): the mirrored series, tap weights
     rounded from double."""
     s = v[:, 0] * _f32(_GAIN)
     zk = 1.0
-    for k in range(1, horizon(n) + 1):
+    for k in range(1, horizon(n, taps) + 1):
         zk *= _Z
         s = s + v[:, _mirror_index(k, n)] * _f32(_GAIN * zk)
     return s
 
 
-def bspline_prefilter_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
+def bspline_prefilter_plain(x: torch.Tensor, axis: int,
+                            taps: int = HORIZON) -> torch.Tensor:
     """Step-by-step PyTorch loop over the filter axis, every product and sum
-    rounded to float32 on its own."""
+    rounded to float32 on its own; the causal init's series truncated at
+    ``taps``."""
     axis = _check(x, axis)
     outer, n, inner = _lines(x.shape, axis)
     if n == 1:
@@ -98,7 +101,7 @@ def bspline_prefilter_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
     v = x.contiguous().view(outer, n, inner)
     y = torch.empty_like(v)
     z, gain = _f32(_Z), _f32(_GAIN)
-    s = _causal_init(v, n)
+    s = _causal_init(v, n, taps)
     y[:, 0] = s
     for i in range(1, n):
         s = v[:, i] * gain + s * z
@@ -141,7 +144,7 @@ def bspline_prefilter_chunked_plain(x: torch.Tensor, axis: int,
     steps = torch.arange(span, device=dev)
     xw = v[:, (a[:, None] + steps).clamp(max=n - 1)]  # (outer, nch, span, inner)
 
-    s = torch.where(from0[None, :, None], _causal_init(v, n)[:, None],
+    s = torch.where(from0[None, :, None], _causal_init(v, n, HORIZON)[:, None],
                     xw[:, :, 0] * gain)
     sw = torch.empty_like(xw)
     sw[:, :, 0] = s

@@ -16,6 +16,7 @@ the caller names the CPU.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 from ..io.image import MedicalImage, is_label_image
 from ..utils.device import exact_numerics, resolve_device
 from ..utils.logging import warn
+from .cuda import prefilter as PF
 from .cuda.prefilter import prefilter_axis
 
 
@@ -32,6 +34,22 @@ def bspline_prefilter(arr: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     for ax in axes:
         arr = prefilter_axis(arr, ax)
     return arr
+
+
+def bspline_prefilter_1d(x: torch.Tensor, tol: float = 1e-10) -> torch.Tensor:
+    """The cubic B-spline prefilter along the last axis (mirror boundary,
+    float32), its causal init's series truncated where the pole's powers
+    fall below ``tol``: scipy's ``spline_filter1d(order=3, mode='mirror')``
+    as the reference computes it. The kernel on a CUDA tensor, whose
+    causal init holds the default tol's 18 taps (another tol raises
+    ValueError there); the plain version on the CPU."""
+    taps = math.ceil(math.log(tol) / math.log(-PF.POLE))
+    if x.device.type == 'cpu':
+        return PF.bspline_prefilter_plain(x, -1, taps)
+    if taps != PF.HORIZON:
+        raise ValueError(f'the CUDA prefilter sums {PF.HORIZON} taps of the '
+                         f'causal-init series, not {taps} (tol {tol})')
+    return prefilter_axis(x, -1)
 
 
 def _bspline3_kernel(t: np.ndarray) -> np.ndarray:

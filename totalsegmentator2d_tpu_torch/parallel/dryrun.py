@@ -1,9 +1,9 @@
 """The reference's ``__graft_entry__.dryrun_multichip(n)`` on n ranks: one
 sharded training step over ``auto_axes(n)`` (ensemble, data, model), the
+same step height-sharded over the model axis (``spatial=True``), the
 augmented step with the packed target, cohort data parallelism, the
 mixed-shape padded cohort and the tile-sharded scan, each held against its
-one-rank result. Rank 0 prints one ``OK`` line per mode. (The reference's
-height-sharded step, ep/dp/sp, is not ported.)
+one-rank result. Rank 0 prints one ``OK`` line per mode.
 
     torchrun --nproc-per-node=8 -m totalsegmentator2d_tpu_torch.parallel.dryrun \\
         --device cpu
@@ -70,6 +70,16 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
                    device=device).step(batch).cpu().numpy()
     np.testing.assert_allclose(loss, solo, rtol=1e-4)
     _say(f'dryrun_multichip OK (ep/dp/tp): mesh={dict(axes)} loss={loss}')
+
+    if 'model' in axes:
+        # the image HEIGHT shards over the model axis (a halo per 3x3 conv)
+        sp_loss = Trainer(spec, cfg, mesh=mesh, seed=0,
+                          ensemble_size=ens if ens else None, spatial=True,
+                          device=device).step(batch).cpu().numpy()
+        assert np.all(np.isfinite(sp_loss)), f'non-finite sp loss: {sp_loss}'
+        assert np.allclose(sp_loss, loss, atol=1e-4), \
+            f'spatial-parallel loss diverged: {sp_loss} vs {loss}'
+        _say(f'dryrun_multichip OK (ep/dp/sp): loss={sp_loss}')
 
     aug_cfg = TrainConfig(lr=1e-3, total_steps=10, multilabel=True,
                           deep_supervision=True, augment=True)

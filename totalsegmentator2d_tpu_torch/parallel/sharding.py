@@ -79,6 +79,27 @@ def shard_params(params: Dict[str, torch.Tensor], mesh,
     return {k: local_slice(v, specs[k], mesh) for k, v in params.items()}
 
 
+def height_slab(h: int, stride: int, parts: int, index: int
+                ) -> Tuple[int, int]:
+    """(first row, rows) of slab ``index`` of ``parts`` over an image of
+    ``h`` rows: whole blocks of ``stride`` rows (the U-Net's total stride,
+    so every level's slab is whole), split as evenly as the blocks allow,
+    the first slabs one block larger (h = 36, stride 4, 2 parts: 20 and 16
+    rows). Raises ValueError when ``h`` is not a multiple of ``stride`` or
+    holds fewer blocks than ``parts``."""
+    if h % stride:
+        raise ValueError(f'height {h} is not a multiple of the total stride '
+                         f'{stride}')
+    blocks = h // stride
+    if blocks < parts:
+        raise ValueError(f'height {h} holds {blocks} blocks of the total '
+                         f'stride {stride}, fewer than the {parts} height '
+                         f'shards')
+    base, extra = divmod(blocks, parts)
+    return ((index * base + min(index, extra)) * stride,
+            (base + (index < extra)) * stride)
+
+
 def batch_sharding(mesh, data_axis: str = 'data', ndim: int = 4,
                    ensemble_axis: Optional[str] = None,
                    stacked: bool = False) -> Callable:

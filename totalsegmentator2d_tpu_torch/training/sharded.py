@@ -17,12 +17,25 @@ shardings, with the collectives written out).
 - **ensemble**: each rank trains its contiguous G/E models of the stack;
   the (G,) losses are gathered.
 
-Height sharding (the reference's ``spatial=True``) is not here.
+Height sharding (the reference's ``spatial=True``) turns the 'model' axis
+from channels to image rows: the weights are whole on every rank of it,
+and each rank takes its height slab of its data rows
+(parallel/sharding.height_slab: whole blocks of the total stride, as even
+as the blocks allow). The forward runs with the axis as its height group
+(``UNet.forward_train(group=)``: a halo exchange before every 3x3 conv,
+InstanceNorm statistics reduced over the group), and so does the loss,
+which is the whole image's on every rank. Each rank's gradients are its
+rows' part: they are summed over the model axis and meaned over the data
+axis in one ``all_reduce`` over the data x model ranks. The mesh must
+have a 'data' and a 'model' axis, as the reference's batch sharding
+``P('data', 'model', None, None)`` must.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -30,12 +43,9 @@ import torch.nn as nn
 
 from ..models.unet import ConvNormAct, UNet
 from ..parallel.collectives import all_gather_cat, enter_shard, gather_shards
-from ..parallel.mesh import axis_index, axis_size, named
-from ..parallel.sharding import (batch_sharding, channel_dim, local_slice,
-                                 param_shardings, shard_params)
-
-SPATIAL = ('spatial=True (height-sharded training with a halo exchange per '
-           '3x3 conv) is the spatial slice of the port, not ported yet')
+from ..parallel.mesh import axis_index, axis_size, mesh_key, named
+from ..parallel.sharding import (batch_sharding, channel_dim, height_slab,
+                                 local_slice, param_shardings, shard_params)
 
 
 class ShardLayout:
@@ -43,10 +53,20 @@ class ShardLayout:
     a mesh's 'data', 'model' and (for a stacked ensemble) 'ensemble' axes,
     and the collectives that gather and slice them. Axes the mesh lacks
     count as size 1; an 'ensemble' axis without a stacked ensemble
-    replicates."""
+    replicates. ``spatial``: the 'model' axis shards image rows (in slabs
+    of whole blocks of ``stride``, the U-Net's total height stride), not
+    channels."""
 
-    def __init__(self, mesh, n_models: int, ensemble: bool):
+    def __init__(self, mesh, n_models: int, ensemble: bool,
+                 spatial: bool = False, stride: int = 1):
+        missing = [a for a in ('data', 'model')
+                   if not axis_size(mesh, a)] if spatial else []
+        if missing:
+            raise ValueError(f"spatial=True shards the batch over 'data' and "
+                             f"'model': the mesh {tuple(mesh.mesh_dim_names)} "
+                             f"has no {' or '.join(map(repr, missing))} axis")
         self.mesh = mesh
+        self.spatial = spatial
         self.D = axis_size(mesh, 'data') or 1
         self.M = axis_size(mesh, 'model') or 1
         self.E = (axis_size(mesh, 'ensemble') or 1) if ensemble else 1
@@ -60,12 +80,28 @@ class ShardLayout:
         k = n_models // self.E
         self.members = list(range(e * k, (e + 1) * k))
         self.n_models = n_models
-        self.model_axis = 'model' if self.M > 1 else None
+        self.model_axis = 'model' if self.M > 1 and not spatial else None
         self.specs: Dict[str, tuple] = {}
         # this rank's block of a global batch: its members of a (G, N, ...)
-        # stack, its rows of the N
+        # stack, its rows of the N (and its height slab of them)
         self.take = batch_sharding(mesh, 'data', ensemble_axis='ensemble',
                                    stacked=ensemble)
+        # the height group of the forward and the loss, and the ranks that
+        # sum the gradients (a data x model group under height sharding)
+        self.height_group = None
+        self.grad_group = self.data_group
+        if spatial and self.M > 1:
+            self.height_group = self.model_group
+            self.grad_group = _flat_group(mesh, ('data', 'model'))
+            rows, m, h_dim = self.take, axis_index(mesh, 'model'), \
+                2 if ensemble else 1
+
+            def take(x: torch.Tensor) -> torch.Tensor:
+                x = rows(x)
+                start, size = height_slab(x.shape[h_dim], stride, self.M, m)
+                return x.narrow(h_dim, start, size)
+
+            self.take = take
 
     # -- weights -------------------------------------------------------------
 
@@ -96,8 +132,8 @@ class ShardLayout:
         channel shards: each sharded block, transposed conv and head runs
         on the full input (``enter_shard``) and its shard of the output is
         gathered (``gather_shards``) into the full activation. None without
-        a model axis."""
-        if self.model_group is None:
+        a model axis, or when it shards rows."""
+        if self.model_axis is None:
             return None
         sharded, group = self.sharded_modules(model), self.model_group
 
@@ -148,22 +184,50 @@ class ShardLayout:
 
     def sync(self, model: UNet, loss: torch.Tensor) -> torch.Tensor:
         """Mean the gradients and the loss over the data group in one
-        ``all_reduce``; returns the global loss."""
-        if self.data_group is None:
+        ``all_reduce``; returns the global loss. Under height sharding the
+        one ``all_reduce`` runs over the data x model ranks: each rank's
+        gradients are its rows' part, and its loss is already its data
+        rows' whole loss (so the sum holds M copies of it)."""
+        if self.grad_group is None:
             return loss.detach()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads]
                          + [loss.detach().reshape(1)])
-        dist.all_reduce(flat, group=self.data_group)
+        dist.all_reduce(flat, group=self.grad_group)
         flat /= self.D
         i = 0
         for g in grads:
             g.copy_(flat[i:i + g.numel()].view_as(g))
             i += g.numel()
-        return flat[-1]
+        return flat[-1] / self.M if self.height_group is not None \
+            else flat[-1]
 
     def gather_losses(self, losses: torch.Tensor) -> torch.Tensor:
         """This rank's members' losses -> the (G,) losses."""
         if self.ens_group is None:
             return losses
         return all_gather_cat(losses, 0, self.ens_group)
+
+
+# (world group, mesh_key, axes) -> the flat group built for them
+_FLAT_GROUPS: Dict[tuple, object] = {}
+
+
+def _flat_group(mesh, axes):
+    """The process group of the ranks that share this rank's coordinates on
+    every axis of ``mesh`` but ``axes``: the world's own group when ``axes``
+    are all of them, else built once per world, mesh layout and axes
+    (collective the first time: every rank builds every such group, in the
+    same order)."""
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    if all(mesh.mesh.shape[i] == 1 for i in rest):
+        return dist.group.WORLD
+    key = (dist.group.WORLD, mesh_key(mesh), tuple(axes))
+    if key not in _FLAT_GROUPS:
+        size = math.prod(mesh.mesh.shape[i] for i in keep)
+        ranks = mesh.mesh.permute(rest + keep).reshape(-1, size)
+        _FLAT_GROUPS[key], _ = dist.new_subgroups_by_enumeration(
+            ranks.tolist())
+    return _FLAT_GROUPS[key]

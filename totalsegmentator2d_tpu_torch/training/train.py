@@ -10,7 +10,8 @@ draws. ``mesh=`` (a ``parallel.make_mesh`` over the ranks of a
 'ensemble' axes (training/sharded.py): every rank makes the same calls with
 the GLOBAL batch, and gets the global loss back, as the reference's one
 process does; checkpoints and ``params`` are whole, in the single-device
-layout.
+layout. ``spatial=True`` turns the 'model' axis from channel shards to
+height slabs of the batch (training/sharded.py).
 
 Numerics: fp32 training holds the exact settings (cuDNN without TF32, a
 fixed algorithm choice) while a CUDA trainer lives, so the card trains in
@@ -98,21 +99,23 @@ def loss_fn(model: UNet, batch: Dict[str, torch.Tensor],
     """The loss of one batch (image (N, H, W, C) float, target (N, H, W, L)
     one-hot or (N, H, W) labels), under ``stats_override(cfg.stats)``.
     ``layout``: a model holding channel shards (sharded.ShardLayout) runs
-    the forward through the layout's tensor-parallel gate."""
+    the forward through the layout's tensor-parallel gate; a batch of
+    height slabs runs the forward and the loss over its height group."""
     cdt = _compute_dtype(cfg)
     x = batch['image'].permute(0, 3, 1, 2).contiguous()
+    gate, group = ((None, None) if layout is None else
+                   (layout.gate(model), layout.height_group))
     with stats_override(cfg.stats):
         out = model.forward_train(x, compute_dtype=cdt,
                                   deep_supervision=cfg.deep_supervision,
                                   head_dtype=cdt, remat=cfg.remat,
-                                  gate=None if layout is None else
-                                  layout.gate(model))
+                                  gate=gate, group=group)
         if cfg.deep_supervision:
             heads = [o.float().permute(0, 2, 3, 1) for o in out]
             return deep_supervision_loss(heads, batch['target'],
-                                         cfg.multilabel)
+                                         cfg.multilabel, group)
         return dice_and_ce(out.float().permute(0, 2, 3, 1), batch['target'],
-                           cfg.multilabel)
+                           cfg.multilabel, group)
 
 
 def train_step(model: UNet, optimizer: torch.optim.SGD,
@@ -156,16 +159,16 @@ def build_sharded_train_step(mesh, spec: ArchSpec, cfg: TrainConfig, params,
     this rank's models holding their shards, their SGD optimizers (the
     momentum beside the shards), the layout that gathers and slices them;
     ``step_fn(batch, count)`` takes this rank's rows (a (G_local, ...)
-    stack of them for an ensemble) and returns the global loss, or the (G,)
+    stack of them for an ensemble; with ``spatial``, its height slab of
+    them, ``layout.take``) and returns the global loss, or the (G,)
     losses. The reference returns (step, params, opt_state, optax
     optimizer) of one jitted program."""
     from ..parallel.mesh import check_mesh
-    from .sharded import SPATIAL, ShardLayout
-    if spatial:
-        raise NotImplementedError(SPATIAL)
+    from .sharded import ShardLayout
     check_mesh(mesh)
     sds = list(params) if ensemble else [params]
-    layout = ShardLayout(mesh, len(sds), ensemble)
+    layout = ShardLayout(mesh, len(sds), ensemble, spatial=spatial,
+                         stride=spec.total_stride[0])
     dev = resolve_device(device)
     models = []
     for i in layout.members:
@@ -212,14 +215,13 @@ class Trainer:
     ``params``, :meth:`save_checkpoint` and :meth:`restore_checkpoint` are
     collectives: the whole weights in the single-device layout, written by
     rank 0, sliced back on restore, so a checkpoint moves between sharded
-    and unsharded trainers."""
+    and unsharded trainers. ``spatial=True`` shards image rows over the
+    mesh's 'model' axis (training/sharded.py); without a mesh it trains
+    unsharded, as the reference does."""
 
     def __init__(self, spec: ArchSpec, cfg: TrainConfig, mesh=None,
                  seed: int = 0, ensemble_size: Optional[int] = None,
                  spatial: bool = False, device=None):
-        if spatial:
-            from .sharded import SPATIAL
-            raise NotImplementedError(SPATIAL)
         self.spec = spec
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -233,7 +235,7 @@ class Trainer:
             (self._step, self.models, self.optimizers,
              self._layout) = build_sharded_train_step(
                 mesh, spec, cfg, sds if self._ensemble else sds[0],
-                ensemble=self._ensemble, device=self.device)
+                ensemble=self._ensemble, spatial=spatial, device=self.device)
         else:
             self.models: List[UNet] = []
             for sd in sds:

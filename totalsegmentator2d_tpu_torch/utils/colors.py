@@ -41,6 +41,11 @@ def hex_to_rgb(value: str) -> tuple:
     return tuple(int(v[i:i + 2], 16) for i in (0, 2, 4))
 
 
+def rgb_to_hex(rgb: Sequence[int]) -> str:
+    r, g, b = (int(c) for c in rgb)
+    return f'#{r:02x}{g:02x}{b:02x}'
+
+
 def _random_color(seed: int) -> tuple:
     rnd = random.Random(seed)
     return tuple(rnd.randint(32, 200) for _ in range(3))

@@ -50,6 +50,12 @@ def get_default_model() -> str:
     return _get_config()['default-model']
 
 
+def get_test_model(kind: str = 'single') -> str:
+    """The packaged test model key of ``kind`` ('single', 'single-xr',
+    'multi')."""
+    return _get_config()[f'default-test-model-{kind}']
+
+
 def get_model_resolve_map() -> dict:
     return dict(_get_config().get('default-resolve', {}))
 

@@ -40,6 +40,16 @@ def isemptydir(path: str) -> bool:
     return os.path.isdir(path) and not os.listdir(path)
 
 
+def enumerate_files(root: str, skip_private: bool = True):
+    """Every file under ``root``, recursively, skipping '_'-prefixed
+    directories unless ``skip_private`` is off."""
+    for dirpath, dirnames, filenames in os.walk(root):
+        if skip_private:
+            dirnames[:] = [d for d in dirnames if not d.startswith('_')]
+        for fn in sorted(filenames):
+            yield os.path.join(dirpath, fn)
+
+
 def get_home_dir() -> str:
     return os.environ.get('TS2D_HOME') or os.path.join(os.path.expanduser('~'), '.ts2d')
 
@@ -50,3 +60,13 @@ def get_local_models_root() -> str:
 
 def get_package_data_dir() -> str:
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'data')
+
+
+def split_image_name(filename: str):
+    """'name.ext' split at its first dot, so that a multi-part medical-image
+    extension stays whole ('a.nii.gz' -> ('a', 'nii.gz'))."""
+    base = os.path.basename(filename)
+    if '.' not in base:
+        return base, ''
+    name, ext = base.split('.', 1)
+    return name, ext

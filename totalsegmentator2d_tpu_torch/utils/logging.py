@@ -24,6 +24,16 @@ def is_silent() -> bool:
     return _silent
 
 
+def add_log_sink(fn) -> None:
+    """Send every :func:`log` line to ``fn`` too (called as print is)."""
+    _sinks.append(fn)
+
+
+def remove_log_sink(fn) -> None:
+    if fn in _sinks:
+        _sinks.remove(fn)
+
+
 def _fingerprint() -> tuple:
     # identify the log()/warn() call site: the stack ends
     # [..., caller, log_or_warn, _fingerprint], so the caller is third

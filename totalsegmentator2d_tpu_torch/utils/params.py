@@ -135,6 +135,26 @@ def _walk(d: Any, parts: list[str]) -> Any:
     return cur
 
 
+def dict_has(d: Mapping, key: str) -> bool:
+    if isinstance(d, Mapping) and key in d:
+        return True
+    return _walk(d, str(key).split('.')) is not _MISSING
+
+
+def dict_set(d: dict, key: str, value: Any) -> dict:
+    """Set a dotted key in a nested dict, making the dicts on its way."""
+    parts = split_key(key)
+    cur = d
+    for p in parts[:-1]:
+        nxt = cur.get(p)
+        if not isinstance(nxt, dict):
+            nxt = {}
+            cur[p] = nxt
+        cur = nxt
+    cur[parts[-1]] = value
+    return d
+
+
 def nest_dict(flat: Mapping, check_sequence: bool = False) -> dict:
     """Expand a flat dict with dotted keys into a nested dict. Supports
     ``name[i]`` sequence segments (finalized into index-ordered lists) and
@@ -210,6 +230,18 @@ def _finalize_sequences(node: Any, check: bool):
     return node
 
 
+def flatten_dict(d: Mapping, prefix: str = '') -> dict:
+    """The inverse of :func:`nest_dict`: a nested dict as dotted keys."""
+    res: dict = {}
+    for k, v in d.items():
+        key = f'{prefix}{k}'
+        if isinstance(v, Mapping) and v:
+            res.update(flatten_dict(v, prefix=f'{key}.'))
+        else:
+            res[key] = v
+    return res
+
+
 def dict_merge(base: Mapping | None, *overlays: Mapping | None) -> dict:
     """Deep merge: later dicts override earlier ones; nested dicts merge
     recursively, everything else replaces. Inputs are not mutated."""
@@ -263,6 +295,74 @@ def as_list(v: Any) -> list:
 
 def as_set(v: Any) -> set:
     return set(as_list(v))
+
+
+def as_tuple(v: Any) -> tuple:
+    return tuple(as_list(v))
+
+
+def unwrap_singular(v: Any, fail: bool = True) -> Any:
+    """The one element of a one-element collection (a mapping's one value);
+    anything that is not a collection passes through. A collection of
+    another size raises ValueError, or with ``fail=False`` passes
+    through."""
+    if isinstance(v, Mapping):
+        vals = list(v.values())
+    elif isinstance(v, (str, bytes)) or not isinstance(v, Iterable):
+        return v
+    else:
+        vals = list(v)
+    if len(vals) == 1:
+        return vals[0]
+    if fail:
+        raise ValueError('Container does not contain exactly one element.')
+    return v
+
+
+def default(value: Any, fallback: Any) -> Any:
+    return fallback if value is None else value
+
+
+def native(v: Any) -> Any:
+    """numpy scalars and arrays as plain Python values (for JSON), through
+    lists, tuples and dicts."""
+    import numpy as np
+
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, (list, tuple)):
+        return type(v)(native(x) for x in v)
+    if isinstance(v, dict):
+        return {native(k): native(x) for k, x in v.items()}
+    return v
+
+
+def format_array(arr, p: int = 3, sep: str = ', ') -> str:
+    """A sequence as compact text: floats at ``p`` decimals without
+    trailing zeros."""
+    def fmt(v):
+        if isinstance(v, float):
+            s = f'{v:.{p}f}'.rstrip('0').rstrip('.')
+            return s if s else '0'
+        return str(v)
+    return sep.join(fmt(v) for v in as_list(arr))
+
+
+def short_message(text: str, limit: int = 120, ellipsis: str = '...') -> str:
+    """``text`` cut to ``limit`` characters, the cut marked."""
+    text = str(text)
+    if len(text) <= limit:
+        return text
+    return text[:max(limit - len(ellipsis), 0)] + ellipsis
+
+
+def unit_vector(v):
+    import numpy as np
+    arr = np.asarray(v, dtype=float)
+    n = np.linalg.norm(arr)
+    return arr / n if n > 0 else arr
 
 
 def parse_int(v: Any, err: Any = None) -> int | None:
