@@ -162,7 +162,23 @@ print only at the end):
    memory. Phase 2 holds both kernels at a rank's shapes: the fused block
    at N = 8 (2 of the 4 tiles) and N = 64 (4 scans of the cohort), the
    prefilter at the cohort share (4, 400, 512, 2) along axes 1, 2.
-12. One JSON line with every kernel (the batch-8, bucket, visual,
+12. The whole chain's logits on the card against the independent oracle
+   (``tests/reference_chain.predict`` through ``tools/torch_parity.py``:
+   numpy, scipy and the port's ``UNet`` on the CPU in fp32): (a) the
+   flagship vertebrae model (6 stages, features 32..512, patch 256^2, 26
+   labels, 1 fold) as a per-model ``InferenceEngine`` on the seed-7
+   phantom's projection, (400, 512, 2) at (1.25, 0.78) mm, with
+   ``predict_array(..., return_logits=True)`` at 'exact' and at 'fast',
+   the launch counts set to 0 just before each and read just after
+   (prefilter 2 each; fused block 0 exact, one forward batch's 16 per
+   forward batch fast): the max logit drift (exact < 2e-2, fast <
+   ``FAST_LOGIT_BAR``), the agreement, borderline-only flips (every pixel
+   that disagrees within 3x the drift of the threshold) and the bbox; the
+   mask program's masks equal to the logits variant's; (b) the 6 small
+   configurations of ``tools/torch_parity.py`` on the card against the
+   oracle (drift < 2e-2, borderline-only flips); (c) the card's exact
+   logits against the port's own on the CPU (< 5e-3, masks >= 0.999).
+13. One JSON line with every kernel (the batch-8, bucket, visual,
    training and per-rank figures and launches per batch, per bucket scan,
    per saved result, per training step, per preprocessed case and per
    rank beside the main path's), then the card line, then the device
@@ -248,6 +264,14 @@ RANKS = 2
 TILE_RANK_N = SOLO_BATCH // RANKS
 COHORT_RANK_N = 8 // RANKS * SOLO_BATCH
 COHORT_RANK_STACK = (8 // RANKS, 400, 512, 2)
+# phase 12: the whole chain's logits against the oracle. Exact holds the
+# device bar of tools/parity.py; the fast bar was written into PERF.md
+# before the first run on the card (bf16 operands drift the flagship's
+# logits by ~5e-2 through the plain versions on the CPU, on a crop of the
+# phantom)
+EXACT_LOGIT_BAR = 2e-2
+FAST_LOGIT_BAR = 0.15
+GPU_CPU_LOGIT_BAR = 5e-3
 
 
 def phase(name):
@@ -2851,13 +2875,105 @@ def parallel_inputs(scans):
     del vols
 
 
-PHASES = frozenset(range(1, 12))
+# -- 12. the whole chain's logits against the oracle --------------------------
+
+def whole_chain_logits(scan):
+    """Phase 12: the flagship per-model engine's logits on the card at both
+    precisions, then the small configurations, against the oracle on the
+    CPU, and the exact logits against the port's own CPU run. Returns the
+    launches of the exact and the fast run."""
+    phase('whole chain logits: the flagship vertebrae model on the card '
+          'against the oracle (numpy, scipy, the UNet on the CPU in fp32)')
+    import importlib.util
+    from totalsegmentator2d_tpu_torch.inference import InferenceEngine
+    # by its file: a package named tools elsewhere on the path would
+    # shadow the repository's directory
+    spec = importlib.util.spec_from_file_location(
+        'ts2d_torch_parity', os.path.join(ROOT, 'tools', 'torch_parity.py'))
+    TP = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(TP)
+    t_phase = time.perf_counter()
+    arr = projection(scan)
+    spec, nets, sds = TP.build_config('bench-arch')
+    a = spec.arch
+    if (a.n_stages, tuple(a.features_per_stage), tuple(
+            spec.preprocess.patch_size), a.out_channels) != (
+            FLAGSHIP['n_stages'], FLAGSHIP['features'], FLAGSHIP['patch'],
+            GROUPS['vertebrae']):
+        raise SystemExit(f'phase 12 needs the flagship vertebrae model, got '
+                         f'{a}')
+    t0 = time.perf_counter()
+    ref = TP.oracle_predict(arr, SPACING_YX, spec, nets)
+    print(f'oracle on the CPU: {time.perf_counter() - t0:.1f} s, logits '
+          f'{ref[1].shape}, |logit| max {np.abs(ref[1]).max():.3f}')
+    launches, seg_exact, logits_exact = {}, None, None
+    for precision, bar in (('exact', EXACT_LOGIT_BAR),
+                           ('fast', FAST_LOGIT_BAR)):
+        fast = precision == 'fast'
+        eng = InferenceEngine(spec, sds, compute_dtype=(torch.bfloat16
+                                                        if fast else None))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        seg, logits, bbox = eng.predict_array(arr, SPACING_YX,
+                                              return_logits=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = launches[precision] = read_launches()
+        cropped = eng._crop(arr)[0]
+        meta = eng._program(cropped.shape[:2], SPACING_YX, logits=True)[1]
+        per_batch = max(1, eng.forward_batch_cap // meta['n_mirror'])
+        batches = -(-meta['n_tiles'] // per_batch)
+        want = len(fused_launches(FLAGSHIP)) * batches if fast else 0
+        masks = eng.predict_array(arr, SPACING_YX)
+        eng.close()
+        entry = TP.device_entry(seg, logits, bbox, ref, spec, bar=bar)
+        print(f'{precision}: logits {logits.shape} {logits.dtype}, max drift '
+              f'{entry["max_abs_logit_err"]:.3e} (bar {bar:g}), agreement '
+              f'{entry["mask_agreement"]:.6f}, flips borderline only '
+              f'{entry["flips_borderline_only"]}, bbox {bbox} '
+              f'{"==" if entry["bbox_match"] else "!="} oracle; {dt:.3f} s '
+              f'(first call); launches {ran} ({meta["n_tiles"]} tiles x '
+              f'{meta["n_mirror"]} mirrors in {batches} forward batch(es))')
+        if not entry['ok']:
+            raise SystemExit(f'phase 12 {precision}: {entry}')
+        if ran != {'bspline_prefilter': 2, 'fused_norm_act_conv': want}:
+            raise SystemExit(f'phase 12 {precision}: kernel launches {ran}, '
+                             f'expected prefilter 2 and fused block {want}')
+        if not np.array_equal(masks, seg):
+            raise SystemExit(f'phase 12 {precision}: the mask program '
+                             f'differs from the logits variant')
+        if not fast:
+            seg_exact, logits_exact = seg, logits
+    cpu = InferenceEngine(spec, sds, device='cpu')
+    seg_c, logits_c, bbox_c = cpu.predict_array(arr, SPACING_YX,
+                                                return_logits=True)
+    drift = float(np.abs(logits_exact - logits_c).max())
+    agree = float((seg_exact == seg_c).mean())
+    print(f'exact GPU vs the port on the CPU: max logit drift {drift:.3e} '
+          f'(bar {GPU_CPU_LOGIT_BAR:g}), mask agreement {agree:.6f}')
+    if drift >= GPU_CPU_LOGIT_BAR or agree < 0.999 or bbox_c != ref[2]:
+        raise SystemExit(f'phase 12: GPU/CPU logits drift {drift}, '
+                         f'agreement {agree}')
+    small = TP.check_device_full_chain('cuda')
+    for name, e in small['configs'].items():
+        print(f'  {name:12s} drift {e["max_abs_logit_err"]:.3e}, agreement '
+              f'{e["mask_agreement"]:.6f}, flips borderline only '
+              f'{e["flips_borderline_only"]}, bbox match {e["bbox_match"]}')
+    if not small['ok']:
+        raise SystemExit(f'phase 12: small configurations {small}')
+    print(f'phase 12 in {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
+PHASES = frozenset(range(1, 13))
 
 
 def main(phases=PHASES):
     """Every phase, or with ``--phases 2,11`` a subset (phase 1 always; each
-    phase makes the inputs it needs: the database and the seed-7 phantom,
-    phase 6's phantoms for phases 7 and 11). A subset's kernels line holds
+    phase makes the inputs it needs: the database and the seed-7 phantom
+    (phase 12 the phantom only), phase 6's phantoms for phases 7 and 11).
+    A subset's kernels line holds
     what its phases measured, and only the whole run requires every
     kernel's launches on every path."""
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2871,9 +2987,10 @@ def main(phases=PHASES):
     sites = {}   # [(kernel key, counts by kernel name)] of the phases run
 
     db = os.path.join(WORK, 'db_flagship')
-    if phases & {3, 6, 7, 8, 9, 11}:
+    if phases & {3, 6, 7, 8, 9, 11, 12}:
         t0 = time.perf_counter()
-        write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
+        if phases & {3, 6, 7, 8, 9, 11}:
+            write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
         scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
         print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
     if 3 in phases:
@@ -2917,6 +3034,13 @@ def main(phases=PHASES):
                           ('cohort_rank', 'cohort_fast')):
             fused.setdefault(key, {})['launches'] = min(
                 r[call]['fused_norm_act_conv'] for r in per_rank)
+    if 12 in phases:
+        # per predict_array(return_logits=True) of the flagship per-model
+        # engine, exact and fast
+        for precision, counts in whole_chain_logits(scan).items():
+            for k in kernels:
+                k.setdefault(f'logits_{precision}', {})['launches'] = \
+                    counts[k['name']]
     for k in kernels:
         name = k['name']
         for key, counts in sites.items():

@@ -16,7 +16,9 @@ own, built into ``totalsegmentator2d_tpu_torch/build/``, never the
 reference package's ``_native/libts2dio.so``: the child records every file
 it opens and every library it loads (audit hooks), and none lies under the
 reference package's ``_native/``. The rank processes of
-tests/test_torch_parallel*.py install the same refusals."""
+tests/test_torch_parallel*.py install the same refusals. The port's parity
+tool, tools/torch_parity.py, is held to the same: statically, and by its
+offline mode run under the refusals."""
 
 import ast
 import os
@@ -46,6 +48,7 @@ def _sources():
             if fn.endswith('.py'):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(REPO, 'chip_smoke.py')
+    yield os.path.join(REPO, 'tools', 'torch_parity.py')
 
 
 @pytest.mark.parametrize('name,blocked', [
@@ -64,7 +67,8 @@ def test_no_import_statement_reaches_jax():
     assert {'parallel/__init__.py', 'parallel/distributed.py',
             'parallel/mesh.py', 'parallel/sharding.py', 'parallel/ensemble.py',
             'parallel/collectives.py', 'parallel/dryrun.py',
-            'training/sharded.py'} <= scanned
+            'training/sharded.py',
+            os.path.join('..', 'tools', 'torch_parity.py')} <= scanned
     found = []
     for path in _sources():
         with open(path) as f:
@@ -174,6 +178,63 @@ def test_port_runs_with_jax_blocked(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith('OK')
+
+
+_PARITY_CHILD = r'''
+import importlib.util, json, sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu',
+                                  'requests', 'PIL', 'optax', 'orbax'):
+            raise ImportError(f'blocked import: {name}')
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import torch
+torch.set_num_threads(2)   # it runs beside the other test workers
+spec = importlib.util.spec_from_file_location('torch_parity', sys.argv[1])
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+rc = tool.main(['--configs', 'multilabel', '--assets', 'sample_s0521',
+                '--out', sys.argv[2],
+                '--checks', ','.join(c for c in tool.OFFLINE
+                                     if c != 'full-chain-bench-arch')])
+leaked = [m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'totalsegmentator2d_tpu', 'requests', 'PIL', 'optax',
+    'orbax')]
+assert not leaked, leaked
+sys.exit(rc)
+'''
+
+
+def test_parity_tool_runs_with_jax_blocked(tmp_path):
+    """tools/torch_parity.py's offline mode at its smallest configuration
+    (the multilabel one and the smallest bundled asset, the 3D CT; every
+    check but the 6-stage architecture's) in a fresh interpreter that
+    refuses the reference package and jax: every check holds, and nothing
+    of theirs was imported."""
+    import json
+    out = tmp_path / 'report.json'
+    proc = subprocess.run(
+        [sys.executable, '-c', _PARITY_CHILD,
+         os.path.join(REPO, 'tools', 'torch_parity.py'), str(out)],
+        cwd=str(tmp_path), env=dict(os.environ), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(out.read_text())
+    assert report['ok'] and report['mode'] == 'offline'
+    assert set(report['checks']) == {
+        'gaussian-window', 'crop-roundtrip', 'volume-crop', 'resample-order',
+        'fused-vs-permodel', 'full-chain', 'full-chain-batched',
+        'full-chain-quantized'}
+    chain = report['checks']['full-chain']
+    assert set(chain['configs']) == {'multilabel', 'multi-tile',
+                                     'no-mirroring'}
+    assert all(e['max_abs_logit_err'] < 5e-3 for e in chain['configs'].values())
+    assert set(chain['assets']) == {'sample_s0521'}
+    assert set(report['checks']['fused-vs-permodel']['agreement']) == {
+        'sample_s0521'}
 
 
 def test_rank_processes_refuse_the_same_imports():

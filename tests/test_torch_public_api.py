@@ -487,3 +487,310 @@ def test_per_model_fallback_starts_all_then_awaits(tmp_path, monkeypatch):
     assert n >= 2
     assert [c[0] for c in calls] == ['start'] * n + ['await'] * n
     assert all(c[2] is False for c in calls[:n])
+
+
+# -- signatures ----------------------------------------------------------------------
+
+_DEVICE = ('device: the port runs on the CUDA card unless the caller names '
+           'the CPU')
+_GENERATOR = ('a torch.Generator (gen / generator) in place of a jax.random '
+              'key: the draws cannot be equal, the tests hold the transforms '
+              'at fixed parameters')
+_READY = ('ready: the CUDA event recorded after the program; the copy waits '
+          'for it and not for later work on the stream')
+_GROUP = ('group: the height group of a height-sharded trainer '
+          '(spatial=True), over which the loss sums reduce')
+_MODULE_STEP = ('a training step on torch modules and optimizers, which hold '
+                'the parameters and the optimizer state (count and layout for '
+                'the sharded trainers)')
+_ARGV = 'main(argv): the command line as a list, for tests and callers'
+_SWAPPED = ('the batch form names the recipe\'s probabilities (it draws every '
+            'sample\'s transforms at once, the warped samples as one stack) '
+            'and the pair form passes them on as **kw, where the reference '
+            'does the reverse')
+
+#: every public function, class and method whose parameter names differ
+#: from the reference package's, and why (ROADMAP.md Queue 3 lists them)
+SIGNATURE_DIVERGENCES = {
+    'api.TS2D.Result': _DEVICE,
+    'api.TS2D.__init__': _DEVICE,
+    'cli.ts2d_run': _DEVICE,
+    'eval.dice_per_label': _DEVICE,
+    'eval.evaluate': _DEVICE,
+    'eval.main': _ARGV,
+    'inference.engine.InferenceEngine.__init__': _DEVICE,
+    'inference.ensemble_engine.EnsembleEngine.__init__': _DEVICE,
+    'inference.ensemble_engine.fetch_compact': _READY,
+    'inference.ensemble_engine.fetch_compact_batch': _READY,
+    'inference.ensemble_engine.fetch_split': _READY,
+    'inference.model.HostedModel.start': _DEVICE,
+    'inference.tiling.accumulate_tiles': (
+        'adds to acc and wacc in place (no acc0 / wacc0 to return), the '
+        'tile validity last and optional'),
+    'io.native.gzip_decompress': (
+        'size: the inflated size a header declares, which bounds the native '
+        'buffer'),
+    'models.unet.init_params': _GENERATOR,
+    'ops.projection.project': _DEVICE,
+    'ops.resample.resample': _DEVICE,
+    'ops.resample.resize_to_shape': _DEVICE,
+    'ops.visual.create_visual': _DEVICE,
+    'ops.visual.label_to_rgb': _DEVICE,
+    'parallel.distributed.global_mesh': _DEVICE,
+    'parallel.distributed.init_distributed': (
+        'backend and device in place of jax.distributed.initialize\'s '
+        '**kwargs: ranks sharing a card ask for gloo'),
+    'parallel.mesh.make_mesh': (
+        'device in place of devices: a mesh spans the whole world, one card '
+        'per rank'),
+    'parallel.mesh.named': (
+        'axis in place of a PartitionSpec: it returns the axis\'s process '
+        'group, there is no NamedSharding'),
+    'parallel.sharding.param_spec': (
+        'channel: the axis of a torch weight that holds its output channels'),
+    'serve.main': _ARGV,
+    'training.augment.add_gaussian_noise': _GENERATOR,
+    'training.augment.augment_batch': _SWAPPED,
+    'training.augment.augment_pair': _SWAPPED,
+    'training.augment.blur_transform': _GENERATOR,
+    'training.augment.brightness_transform': _GENERATOR,
+    'training.augment.contrast_transform': _GENERATOR,
+    'training.augment.elastic_offsets': _GENERATOR,
+    'training.augment.gamma_transform': _GENERATOR,
+    'training.augment.lowres_transform': _GENERATOR,
+    'training.augment.mirror_transform': _GENERATOR,
+    'training.augment.spatial_transform': _GENERATOR,
+    'training.augment.spatial_transform_batch': _GENERATOR,
+    'training.cli.ts2d_train': _DEVICE,
+    'training.data.preprocess_case': _DEVICE,
+    'training.losses.bce_loss': _GROUP,
+    'training.losses.ce_loss': _GROUP,
+    'training.losses.deep_supervision_loss': _GROUP,
+    'training.losses.deep_supervision_weights': _DEVICE,
+    'training.losses.dice_and_ce': _GROUP,
+    'training.losses.soft_dice_loss': _GROUP,
+    'training.train.Trainer.__init__': _DEVICE,
+    'training.train.build_sharded_train_step': _DEVICE,
+    'training.train.ensemble_train_step': _MODULE_STEP,
+    'training.train.loss_fn': _MODULE_STEP,
+    'training.train.make_optimizer': (
+        'params: a torch optimizer is bound to its parameters'),
+    'training.train.train_step': _MODULE_STEP,
+}
+#: the reference's public names the port does not have
+MISSING = {'models.unet.fused_blocks_enabled': (
+    'the TPU build\'s TS2D_FUSED gate: the fast path always runs the fused '
+    'block kernel on the card')}
+#: how a rule's divergence maps the port's names back onto the reference's
+_RULES = {_DEVICE: lambda n: [p for p in n if p != 'device'],
+          _READY: lambda n: [p for p in n if p != 'ready'],
+          _GROUP: lambda n: [p for p in n if p != 'group'],
+          _GENERATOR: lambda n: ['key' if p in ('gen', 'generator') else p
+                                 for p in n if p != 'device']}
+
+
+def _modules(pkg):
+    import pkgutil
+    root = importlib.import_module(pkg)
+    out = {'': root}
+    for info in pkgutil.walk_packages(root.__path__, pkg + '.'):
+        out[info.name[len(pkg) + 1:]] = importlib.import_module(info.name)
+    return out
+
+
+def _names(obj):
+    import inspect
+    return [p.name for p in inspect.signature(obj).parameters.values()]
+
+
+def _public(mod):
+    import inspect
+    return {n: o for n, o in vars(mod).items() if not n.startswith('_')
+            and (inspect.isfunction(o) or inspect.isclass(o))
+            and o.__module__ == mod.__name__}
+
+
+def _callables(ref_cls, port_cls):
+    """(name, reference function, port function) of the reference class's
+    __init__ and public methods that the port's class has (properties
+    aside)."""
+    for name, fn in vars(ref_cls).items():
+        if name.startswith('_') and name != '__init__':
+            continue
+        mine = next((vars(k)[name] for k in port_cls.__mro__
+                     if name in vars(k)), None)
+        if mine is None or isinstance(fn, property):
+            continue
+        fn, mine = (getattr(f, '__func__', f) for f in (fn, mine))
+        if callable(fn) and callable(mine):
+            yield name, fn, mine
+
+
+@pytest.fixture(scope='module')
+def signature_diffs():
+    """{qualified name: (reference's names, port's names)} of every public
+    function, class and method of a module both packages have, and the
+    reference's public names the port's module lacks."""
+    import inspect
+    ref, port = (_modules('totalsegmentator2d_tpu'),
+                 _modules('totalsegmentator2d_tpu_torch'))
+    diffs, missing = {}, set()
+    for rel in sorted(set(ref) & set(port)):
+        for name, obj in _public(ref[rel]).items():
+            mine = getattr(port[rel], name, None)
+            qual = f'{rel}.{name}'
+            if mine is None:
+                missing.add(qual)
+            elif inspect.isclass(obj):
+                for meth, a, b in _callables(obj, mine):
+                    if _names(a) != _names(b):
+                        diffs[f'{qual}.{meth}'] = (_names(a), _names(b))
+            elif _names(obj) != _names(mine):
+                diffs[qual] = (_names(obj), _names(mine))
+    return diffs, missing
+
+
+def test_parameter_names_match_the_reference(signature_diffs):
+    """The port's parameter names are the reference's, in its order, but
+    for the recorded divergences; a divergence of a rule is exactly that
+    rule (the extra device, ready or group, a generator for the key)."""
+    diffs, missing = signature_diffs
+    assert set(diffs) == set(SIGNATURE_DIVERGENCES), (
+        sorted(set(diffs) ^ set(SIGNATURE_DIVERGENCES)))
+    assert missing == set(MISSING)
+    for name, (ref, port) in diffs.items():
+        rule = _RULES.get(SIGNATURE_DIVERGENCES[name])
+        if rule is not None:
+            assert rule(port) == ref, (name, ref, port)
+
+
+def test_signature_walk_covers_the_packages(signature_diffs):
+    """The walk reaches every layer (a comparison that finds nothing
+    because it looked at nothing would pass)."""
+    ref = _modules('totalsegmentator2d_tpu')
+    assert {'api', 'inference.engine', 'inference.ensemble_engine',
+            'models.convert', 'ops.resample', 'parallel.distributed',
+            'training.train', 'io.native'} <= set(ref)
+    assert _names(importlib.import_module(
+        'totalsegmentator2d_tpu_torch.inference.engine').InferenceEngine
+        .predict_array) == ['self', 'arr', 'spacing_yx', 'return_logits']
+
+
+# -- the reference's parameters the port lacked ----------------------------------
+
+def test_zoo_load_interface(hosted):
+    """``interface``: the reference's accepted names load the in-process
+    model; anything else raises the reference's message."""
+    from totalsegmentator2d_tpu.inference import Zoo as JaxZoo
+    from totalsegmentator2d_tpu_torch.inference import Zoo
+    zoo = Zoo(remote=False, local=hosted)
+    for interface in ('hosted', 'PROCESS', 'prc', 'svc', 'server'):
+        m = zoo.load('ts2d-v9-test_cardiac', interface=interface)
+        assert m.id == 'ts2d-v9-test_cardiac'
+    messages = []
+    for z in (zoo, JaxZoo(remote=False, local=hosted)):
+        with pytest.raises(ValueError) as ex:
+            z.load('ts2d-v9-test_cardiac', interface='subprocess')
+        messages.append(str(ex.value))
+    assert messages[0] == messages[1] == 'Invalid model interface: subprocess'
+
+
+def test_resample_default_value_is_accepted_and_unread():
+    from totalsegmentator2d_tpu.ops.resample import resample as ref_resample
+    from totalsegmentator2d_tpu_torch.ops.resample import resample
+    arr = np.random.default_rng(0).standard_normal((6, 7)).astype(np.float32)
+    img, jimg = (_image(m, arr, spacing=(1.0, 1.5)) for m in (
+        'totalsegmentator2d_tpu_torch', 'totalsegmentator2d_tpu'))
+    plain = resample(img, 0.7, device='cpu').array
+    got = resample(img, 0.7, default_value=-1000.0, device='cpu').array
+    np.testing.assert_array_equal(got, plain)
+    want = ref_resample(jimg, 0.7, default_value=-1000.0).array
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('ids,device,error', [
+    ([0, 1], None, ValueError), ([0], 'cpu', ValueError),
+    ([0], 'cuda:1', ValueError), (2, torch.device('cuda', 0), ValueError),
+    ([0], None, RuntimeError), ((1,), 'cuda', RuntimeError)])
+def test_init_distributed_local_device_ids(monkeypatch, ids, device, error):
+    """``[i]`` names cuda:i; more than one id or a contradicting device
+    raises ValueError; without a card it raises as the device does, and
+    it never forms a group on the CPU."""
+    import torch.distributed as dist
+
+    from totalsegmentator2d_tpu_torch.parallel import distributed as D
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+    def refuse(*a, **kw):
+        raise AssertionError('init_process_group reached')
+    monkeypatch.setattr(dist, 'init_process_group', refuse)
+    with pytest.raises(error):
+        D.init_distributed('localhost:1', 1, 0, local_device_ids=ids,
+                           device=device)
+
+
+def test_local_device_ids_name_the_card():
+    from totalsegmentator2d_tpu_torch.parallel.distributed import _local_device
+    assert _local_device([3], None) == torch.device('cuda', 3)
+    assert _local_device(1, 'cuda') == torch.device('cuda', 1)
+    assert _local_device((2,), 'cuda:2') == torch.device('cuda', 2)
+
+
+def test_init_params_dtype():
+    """Every dtype takes the same draws: bf16 weights are the float32
+    weights rounded."""
+    from totalsegmentator2d_tpu_torch.models.unet import init_params
+    spec = _arch()
+    fp32 = init_params(torch.Generator().manual_seed(3), spec)
+    bf16 = init_params(torch.Generator().manual_seed(3), spec, torch.bfloat16)
+    assert set(fp32) == set(bf16)
+    for k, v in fp32.items():
+        assert bf16[k].dtype == torch.bfloat16
+        assert torch.equal(bf16[k], v.to(torch.bfloat16)), k
+
+
+def test_params_to_state_dict_checks_the_spec():
+    """With ``spec`` the weights are checked as ``state_dict_to_params``
+    checks them; the result equals the reference's export of the same
+    params."""
+    from totalsegmentator2d_tpu.models.convert import \
+        params_to_state_dict as ref_export
+    from totalsegmentator2d_tpu.models.unet import init_params_np as ref_init
+    from totalsegmentator2d_tpu_torch.models.convert import (
+        params_from_jax, params_to_state_dict)
+    spec, jspec = _arch(), _arch(False)
+    jparams = ref_init(5, jspec)
+    sd = params_from_jax(jparams)
+    plain = params_to_state_dict(sd)
+    checked = params_to_state_dict(sd, spec)
+    want = ref_export(jparams, jspec)
+    assert set(plain) == set(checked) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(checked[k], plain[k])
+        np.testing.assert_array_equal(checked[k], np.asarray(want[k]))
+    with pytest.raises(ValueError, match='does not match'):
+        params_to_state_dict(sd, _arch(out_channels=sd[
+            'decoder.seg_layers.0.weight'].shape[0] + 1))
+    with pytest.raises(ValueError, match='missing'):
+        params_to_state_dict({k: v for k, v in sd.items()
+                              if 'seg_layers' not in k}, spec)
+
+
+def test_ts2d_no_native(monkeypatch):
+    """``TS2D_NO_NATIVE``, read at the library's first load, takes the
+    Python paths: the same bytes through Python's zlib."""
+    import gzip
+
+    from totalsegmentator2d_tpu_torch.io import native
+    monkeypatch.setattr(native, '_checked', False)
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setenv('TS2D_NO_NATIVE', '1')
+    assert not native.native_available()
+    monkeypatch.delenv('TS2D_NO_NATIVE')
+    assert not native.native_available()  # read once, at the first load
+    data = np.arange(5000, dtype=np.int16).tobytes()
+    packed = native.gzip_compress(data)
+    assert gzip.decompress(packed) == data
+    assert native.gzip_decompress(packed) == data
+    monkeypatch.setattr(native, '_checked', False)
+    assert native.native_available()

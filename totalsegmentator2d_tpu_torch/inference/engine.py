@@ -28,7 +28,10 @@ class InferenceEngine(ScanEngine):
     :param fold_params: state dicts of the UNet module, one per fold
     :param tile_step_size: sliding-window step as a fraction of the patch
     :param use_mirroring: mirror test-time augmentation
+    :param dtype: the work dtype, ``torch.float32`` only (see
+        :class:`~.program.ScanEngine`)
     :param compute_dtype: ``None`` (exact) or ``torch.bfloat16`` (fast)
+    :param forward_batch_cap: bound on the tile x TTA forward batch
     :param device: ``None`` = the CUDA card (raises without one); pass
         ``'cpu'`` to run on the CPU
     """
@@ -38,11 +41,13 @@ class InferenceEngine(ScanEngine):
     def __init__(self, spec: ModelSpec,
                  fold_params: List[Dict[str, torch.Tensor]],
                  tile_step_size: float = 0.5, use_mirroring: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: torch.dtype = torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 forward_batch_cap: int = 64, device=None):
         if not fold_params:
             raise ValueError('At least one fold is required')
         super().__init__(spec, tile_step_size, use_mirroring, compute_dtype,
-                         device)
+                         device, forward_batch_cap, dtype)
         self.n_folds = len(fold_params)
         self.acc_prefix = (spec.arch.out_channels,)
         self.models = [self._load_net(spec.arch, sd) for sd in fold_params]

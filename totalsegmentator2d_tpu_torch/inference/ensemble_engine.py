@@ -64,16 +64,16 @@ from .bucket import BucketProgram
 from .program import ScanEngine, ready_event, to_host, upload
 
 
-def pad_head(sd: Dict[str, torch.Tensor], n_labels: int,
+def pad_head(params: Dict[str, torch.Tensor], n_labels: int,
              max_labels: int) -> Dict[str, torch.Tensor]:
     """Pad every segmentation head of a state dict from n_labels to
     max_labels outputs with zero weights and biases: the padded logits are
     exactly 0 and are sliced away before any decision."""
     if n_labels == max_labels:
-        return sd
+        return params
     extra = max_labels - n_labels
-    out = dict(sd)
-    for k, v in sd.items():
+    out = dict(params)
+    for k, v in params.items():
         if k.startswith('decoder.seg_layers.'):
             out[k] = torch.cat([v, v.new_zeros((extra,) + v.shape[1:])])
     return out
@@ -350,9 +350,9 @@ class EnsembleEngine(ScanEngine):
     :param specs: per-group ModelSpecs; architectures must match except for
         the segmentation-head width, and preprocessing must be identical
     :param group_fold_params: state_dicts[group][fold] of the UNet module
+    :param dtype: the work dtype, ``torch.float32`` only (see
+        :class:`~.program.ScanEngine`)
     :param compute_dtype: ``None`` (exact) or ``torch.bfloat16`` (fast)
-    :param device: ``None`` = the CUDA card (raises without one); pass
-        ``'cpu'`` to run on the CPU
     :param forward_batch_cap: bound on one scan's tile x TTA forward batch
     :param auto_batch: N = concurrent :meth:`predict_array_async` requests
         coalesce into batched programs of N scans (DynamicBatcher, its
@@ -371,6 +371,8 @@ class EnsembleEngine(ScanEngine):
         axis; every rank calls predict with the same scan. Not with
         ``auto_batch``.
     :param tile_axis: the mesh axis of ``tile_mesh`` (default 'data')
+    :param device: ``None`` = the CUDA card (raises without one); pass
+        ``'cpu'`` to run on the CPU
     """
 
     kind = 'ensemble'
@@ -378,12 +380,12 @@ class EnsembleEngine(ScanEngine):
     def __init__(self, specs: Sequence[ModelSpec],
                  group_fold_params: Sequence[Sequence[Dict[str, torch.Tensor]]],
                  tile_step_size: float = 0.5, use_mirroring: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None, device=None,
-                 forward_batch_cap: int = 64,
+                 dtype: torch.dtype = torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None, tile_mesh=None,
+                 tile_axis: str = 'data', forward_batch_cap: int = 64,
                  auto_batch: Optional[int] = None,
-                 compact_wire: Optional[bool] = None,
-                 pad_quantum: Optional[int] = None, tile_mesh=None,
-                 tile_axis: str = 'data'):
+                 pad_quantum: Optional[int] = None,
+                 compact_wire: Optional[bool] = None, device=None):
         if pad_quantum is not None and int(pad_quantum) < 1:
             raise ValueError('pad_quantum must be >= 1')
         if auto_batch is not None and tile_mesh is not None:
@@ -395,7 +397,7 @@ class EnsembleEngine(ScanEngine):
             raise ValueError('At least one group is required')
         self._batcher = None  # before anything can raise: close() reads it
         super().__init__(specs[0], tile_step_size, use_mirroring,
-                         compute_dtype, device, forward_batch_cap)
+                         compute_dtype, device, forward_batch_cap, dtype)
         self.specs = list(specs)
         if tile_mesh is not None:
             from ..parallel.mesh import axis_size, check_mesh
@@ -514,9 +516,9 @@ class EnsembleEngine(ScanEngine):
         return _compact_meta(h, w, -(-self.total_labels // 8))
 
     def _build(self, in_shape, in_spacing, wire=None, batch=None,
-               force_norm_mask=False):
+               force_norm_mask=False, with_logits=False):
         program, meta = super()._build(in_shape, in_spacing, wire, batch,
-                                       force_norm_mask)
+                                       force_norm_mask, with_logits)
         if self.compact_wire:
             meta['compact'] = self._compact_layout(in_shape[0], in_shape[1])
         return program, meta

@@ -172,16 +172,23 @@ class ScanEngine:
         (fast: bf16 U-Net forwards)
     :param forward_batch_cap: bound on the tile x TTA forward batch of one
         scan
+    :param dtype: the programs' work dtype. Only ``torch.float32``: the
+        reference's engines take the parameter, but raise ``TypeError`` on
+        the first predict with any other, so another value raises
+        ``ValueError`` here
     """
 
     kind = 'scan'
 
     def __init__(self, spec: ModelSpec, tile_step_size: float,
                  use_mirroring: bool, compute_dtype: Optional[torch.dtype],
-                 device, forward_batch_cap: int = 64):
+                 device, forward_batch_cap: int = 64,
+                 dtype: torch.dtype = torch.float32):
         if compute_dtype not in (None, torch.bfloat16):
             raise ValueError(f'compute_dtype must be None or torch.bfloat16, '
                              f'got {compute_dtype}')
+        if dtype != torch.float32:
+            raise ValueError(f'dtype must be torch.float32, got {dtype}')
         self.device = resolve_device(device)
         self.spec = spec
         self.tile_step_size = float(tile_step_size)
@@ -237,12 +244,17 @@ class ScanEngine:
 
     def _build(self, in_shape: Tuple[int, int], in_spacing: Tuple[float, float],
                wire=None, batch: Optional[int] = None,
-               force_norm_mask: bool = False):
+               force_norm_mask: bool = False, with_logits: bool = False):
         """The program of one cropped shape: (program, meta). ``program``
         takes host arrays; ``meta['raw']`` is its device part, device
         tensors in, the decided result out (no compaction, no statistics
         override), for the programs that compose it with more device work
         (the volume and cohort programs).
+
+        ``with_logits``: the program returns (result, logits): beside the
+        decided result, the fold-mean logits after the order-1 inverse
+        resample, channels last (h, w, L) on the cropped input grid, in
+        float32.
 
         ``force_norm_mask``: the masked program. Every channel takes the
         z-score statistics of the mask (a scan's true extent inside a
@@ -309,6 +321,8 @@ class ScanEngine:
             logits = logits[..., pads[0][0]:pads[0][0] + rs_shape[0],
                             pads[1][0]:pads[1][0] + rs_shape[1]]
             logits = apply_separable(logits, w_up, axes=(-2, -1))
+            if with_logits:
+                return self._decide(logits), logits.movedim(-3, -1)
             return self._decide(logits)
 
         def program(payload, nz_mask: Optional[np.ndarray] = None):
@@ -318,8 +332,10 @@ class ScanEngine:
             stats = (stats_override('1pass') if batch is not None
                      else contextlib.nullcontext())
             with torch.inference_mode(), exact_numerics(), stats:
-                return self._pack(device_program(upload(payload, dev),
-                                                 upload(nz_mask, dev)))
+                out = device_program(upload(payload, dev), upload(nz_mask, dev))
+                if with_logits:
+                    return self._pack(out[0]), out[1]
+                return self._pack(out)
 
         meta = {'rs_shape': rs_shape, 'n_tiles': len(tiles),
                 'n_mirror': len(mirrors),
@@ -327,24 +343,27 @@ class ScanEngine:
                 'raw': device_program}
         return program, meta
 
-    def _program(self, in_shape, in_spacing, wire=None):
+    def _program(self, in_shape, in_spacing, wire=None, logits=False):
         """The solo program for one cropped shape, spacing and input wire,
-        built once: (program, meta)."""
+        built once: (program, meta). ``logits``: its variant that also
+        returns the logits (:meth:`_build`), cached under its own key."""
         if wire is not None and not any(wire):
             wire = None  # the all-float wire is the plain program
         key = (tuple(in_shape), tuple(round(float(s), 6) for s in in_spacing),
-               wire)
+               wire) + (('logits',) if logits else ())
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
-                hit = self._build(tuple(in_shape), tuple(in_spacing), wire)
+                hit = self._build(tuple(in_shape), tuple(in_spacing), wire,
+                                  with_logits=logits)
                 self._cache[key] = hit
                 log(f'prepared {self.kind} program for shape={key[0]} '
                     f'({hit[1]["n_tiles"]} tiles, {hit[1]["n_mirror"]} '
                     f'mirrors, {self.n_folds} folds, '
                     f'{"fast" if self.compute_dtype else "exact"}, '
                     f'{self.device}'
-                    + (f', int16 wire {wire}' if wire else '') + ')')
+                    + (f', int16 wire {wire}' if wire else '')
+                    + (', logits' if logits else '') + ')')
         return hit
 
     # -- host API -----------------------------------------------------------
@@ -379,13 +398,23 @@ class ScanEngine:
         seg[y0:y1, x0:x1] = seg_c
         return seg
 
-    def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
-                      ) -> np.ndarray:
+    def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float],
+                      return_logits: bool = False):
         """(H, W, C) float array with array-order (y, x) spacing -> the
         engine's uint8 result on the full (H, W) grid. Crops to the nonzero
-        bounding box first (nnU-Net crop_to_nonzero)."""
+        bounding box first (nnU-Net crop_to_nonzero). ``return_logits``:
+        ``(seg, logits, bbox)``, the fold-mean logits (h, w, L) float32 on
+        the cropped grid, where the decision was taken, and the crop
+        ``((y0, y1), (x0, x1))``, through the logits variant of the
+        program (its own cache entry)."""
         cropped, mask, bbox = self._crop(arr)
-        program, _ = self._program(cropped.shape[:2], spacing_yx)
+        program, _ = self._program(cropped.shape[:2], spacing_yx,
+                                   logits=return_logits)
         out = program(cropped.astype(np.float32), mask)
-        return self._place(self._finish(to_host(out, ready_event(out))),
-                           bbox, arr.shape[:2])
+        ready = ready_event(out)
+        seg_d, logits_d = out if return_logits else (out, None)
+        seg = self._place(self._finish(to_host(seg_d, ready)), bbox,
+                          arr.shape[:2])
+        if not return_logits:
+            return seg
+        return seg, to_host(logits_d, ready), bbox

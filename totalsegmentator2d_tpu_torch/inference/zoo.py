@@ -105,9 +105,17 @@ class Zoo:
         return info
 
     def load(self, id: str, param: Optional[dict] = None,
-             revision: Optional[int] = None) -> HostedModel:
+             revision: Optional[int] = None,
+             interface: str = 'hosted') -> HostedModel:
         """Access a model, merge its model.json with the caller's params, and
-        return its HostedModel."""
+        return its HostedModel.
+
+        ``interface`` is the reference's: 'process' / 'prc' and the
+        service names give the same in-process model (there is no worker
+        process to isolate a card in); any other value raises."""
+        if interface.lower() not in ('hosted', 'process', 'prc', 'svc',
+                                     'server'):
+            raise ValueError(f'Invalid model interface: {interface}')
         config = self.access(id=id, revision=revision)
         root = config['root']
         if not root or not os.path.exists(root):

@@ -9,7 +9,9 @@ at first use (:func:`~..ops.cuda.build.host_library`, into the package's
 Python's ``gzip``/``zlib``, numpy and each codec's Python path give the
 same bytes and values, slower; a warning says so once. Each codec wrapper
 then returns None (``j2k_t1_block`` False), which sends its caller down
-the Python path.
+the Python path. ``TS2D_NO_NATIVE`` set (to anything but the empty
+string) at the first load takes those paths without the library, as in
+the reference package.
 
 ``ctypes.CDLL`` releases the GIL for every call, so a projection on the
 caller's thread runs beside the micro-batcher's dispatcher thread, and the
@@ -19,6 +21,7 @@ slices of a DICOM series decode in parallel on the series pool's threads.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 import zlib
 from typing import Optional, Tuple
@@ -93,6 +96,10 @@ def _load():
         return _lib
     with _lock:
         if not _checked:
+            # read once, at the first load, as the reference package does
+            if os.environ.get('TS2D_NO_NATIVE'):
+                _checked = True
+                return None
             try:
                 _lib = load_library()
             except (OSError, RuntimeError) as ex:

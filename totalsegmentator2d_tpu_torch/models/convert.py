@@ -178,12 +178,16 @@ def params_from_jax(params: dict, bf16: bool = False) -> Dict[str, torch.Tensor]
     return round_to_bf16(sd) if bf16 else sd
 
 
-def params_to_state_dict(params: Union[torch.nn.Module, Dict[str, torch.Tensor]]
-                         ) -> Dict[str, np.ndarray]:
+def params_to_state_dict(params: Union[torch.nn.Module, Dict[str, torch.Tensor]],
+                         spec=None) -> Dict[str, np.ndarray]:
     """A UNet (or its state dict) -> the nnU-Net state dict of float32
     numpy arrays that ``checkpoint_final.pth`` holds: conv weights OIHW,
     transposed-conv weights IOHW, keys ``encoder.stages.{s}.convs.{c}.
-    {conv,norm}.*``, ``decoder.{transpconvs,stages,seg_layers}.*``."""
+    {conv,norm}.*``, ``decoder.{transpconvs,stages,seg_layers}.*``. With
+    ``spec`` (an ArchSpec) the weights are checked against it first, as
+    :func:`state_dict_to_params` checks them."""
     sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    if spec is not None:
+        sd = state_dict_to_params(sd, spec)
     return {k: v.detach().to('cpu', torch.float32).numpy().copy()
             for k, v in sd.items()}

@@ -565,12 +565,14 @@ def pad_to_stride(shape: Sequence[int], total_stride: Sequence[int],
 # initialization
 # ---------------------------------------------------------------------------
 
-def init_params(generator: torch.Generator, spec: ArchSpec
-                ) -> Dict[str, torch.Tensor]:
-    """A state dict of :class:`UNet` (float32, on the CPU): He-normal conv,
-    transposed-conv and head weights with std sqrt(2 / fan_in), fan_in =
-    input channels x kernel area (the reference's ``init_params``), zero
-    biases, unit norm scales; drawn from ``generator`` in module order."""
+def init_params(generator: torch.Generator, spec: ArchSpec,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """A state dict of :class:`UNet` in ``dtype``, on the CPU: He-normal
+    conv, transposed-conv and head weights with std sqrt(2 / fan_in),
+    fan_in = input channels x kernel area (the reference's
+    ``init_params``), zero biases, unit norm scales; drawn from
+    ``generator`` in module order, in float32 and then cast, so every
+    dtype takes the same draws."""
     sd: Dict[str, torch.Tensor] = {}
     for name, m in UNet(spec).named_modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -582,7 +584,7 @@ def init_params(generator: torch.Generator, spec: ArchSpec
         elif isinstance(m, InstanceNorm):
             sd[name + '.weight'] = torch.ones(m.weight.shape)
             sd[name + '.bias'] = torch.zeros(m.bias.shape)
-    return sd
+    return {k: v.to(dtype) for k, v in sd.items()}
 
 
 def init_params_np(seed: int, spec: ArchSpec, dtype=np.float32) -> dict:

@@ -182,13 +182,15 @@ def resample(img: MedicalImage,
              order: Optional[int] = None,
              center: Optional[Sequence[float]] = None,
              center_position: Optional[Sequence[float]] = None,
-             device=None) -> MedicalImage:
+             default_value: float = 0.0, device=None) -> MedicalImage:
     """Resample to a target spacing as the reference ``resample()``
     (image.py:293-372): output size ``int(0.5 + n*s_old/s_new)``, the
     centre kept, B-spline (order 3) for intensities and nearest neighbour
     for labels (uint8 forced to nearest), identity transform. The
     prefilter and the matmuls run on ``device`` (None = the CUDA card,
-    'cpu' when asked) in full fp32; the weights are built on the host."""
+    'cpu' when asked) in full fp32; the weights are built on the host.
+    ``default_value`` is accepted and not read, as the reference package
+    does: positions outside the input grid are 0."""
     device = resolve_device(device)
     d = img.dim
     spacing_new = [float(spacing)] * d if np.isscalar(spacing) else \

@@ -41,7 +41,7 @@ __all__ = ['init_distributed', 'is_distributed', 'process_shard',
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None,
+                     local_device_ids=None, backend: Optional[str] = None,
                      device=None) -> Tuple[int, int]:
     """Join (or form) the process group and make this rank's card the
     current one.
@@ -51,11 +51,17 @@ def init_distributed(coordinator_address: Optional[str] = None,
     cluster passes ``coordinator_address='host:port'``, ``num_processes``
     and ``process_id``. ``device``: as :func:`rank_device` (None = this
     rank's CUDA card, raising without one; ``'cpu'`` to run on the CPU).
+    ``local_device_ids``: the reference's list of this process's local
+    devices; one rank drives one card here, so ``[i]`` (or ``i``) names
+    ``cuda:i``. More than one id, or an id that contradicts ``device``,
+    raises ``ValueError``; without a card it raises as ``device`` does.
     ``backend``: default NCCL on CUDA, gloo on the CPU; ``'gloo'`` with
     CUDA for ranks that share a card.
 
     :returns: ``(rank, world size)``
     """
+    if local_device_ids is not None:
+        device = _local_device(local_device_ids, device)
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError('coordinator_address needs num_processes and '
@@ -81,6 +87,22 @@ def init_distributed(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank)
     return dist.get_rank(), dist.get_world_size()
+
+
+def _local_device(local_device_ids, device) -> torch.device:
+    """The card ``local_device_ids`` names, checked against ``device``."""
+    ids = ([local_device_ids] if isinstance(local_device_ids, int)
+           else list(local_device_ids))
+    if len(ids) != 1:
+        raise ValueError(f'local_device_ids names one card per rank; got '
+                         f'{local_device_ids!r}')
+    card = torch.device('cuda', int(ids[0]))
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != 'cuda' or asked.index not in (None, card.index):
+            raise ValueError(f'local_device_ids {local_device_ids!r} names '
+                             f'{card}, but device is {asked}')
+    return card
 
 
 def rank_device(device=None, rank: Optional[int] = None) -> torch.device:
