@@ -178,11 +178,28 @@ print only at the end):
    configurations of ``tools/torch_parity.py`` on the card against the
    oracle (drift < 2e-2, borderline-only flips); (c) the card's exact
    logits against the port's own on the CPU (< 5e-3, masks >= 0.999).
-13. One JSON line with every kernel (the batch-8, bucket, visual,
-   training and per-rank figures and launches per batch, per bucket scan,
-   per saved result, per training step, per preprocessed case and per
-   rank beside the main path's), then the card line, then the device
-   line.
+13. The port's containment harnesses on the card: (a)
+   ``tools/torch_soak_serve.py``'s soak of ``TS2DServer`` around the fast
+   flagship set with batching on (Bearer token, request timeout, body
+   ceiling), 4 client threads posting the seed-7 phantom NRRD of 6c and
+   corrupt, oversized and unauthenticated requests for ~90 s, dispatcher
+   crashes injected in the middle third: every request answered as
+   expected, each 200 equal to the solo reference or >= 0.99 of it, the
+   crashes ``/metrics`` counts equal to those injected, RSS growth under
+   1,500 MB, device memory after the drain within 256 MiB of the warm-up's,
+   and the launch counts, set to 0 just before the warm-up request and
+   read after the drain, equal to prefilter 2 and fused block 80 per
+   program ``/metrics`` counts; the status counts, p50 / p95 latency,
+   requests per second, RSS and device memory are printed; (b)
+   ``tools/torch_fuzz_ingest.py --native on`` in a child process over
+   every target (the stored fixtures stand in for Pillow and CharLS):
+   no leak, crash or hang, every base file decoded, through the card
+   host's own build of ``csrc/ts2dio.cc``.
+14. One JSON line with every kernel (the batch-8, bucket, visual,
+   training, per-rank and soak figures and launches per batch, per bucket
+   scan, per saved result, per training step, per preprocessed case, per
+   rank and per soak program beside the main path's), then the card line,
+   then the device line.
 
 Needs nothing but the repository, PyTorch with CUDA, numpy, scipy and the
 CUDA toolkit; imports nothing of the JAX package. It reaches no network:
@@ -2877,6 +2894,17 @@ def parallel_inputs(scans):
 
 # -- 12. the whole chain's logits against the oracle --------------------------
 
+def load_tool(name):
+    """A module of tools/ by its file: a package named tools elsewhere on
+    the path would shadow the repository's directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f'ts2d_{name}', os.path.join(ROOT, 'tools', f'{name}.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def whole_chain_logits(scan):
     """Phase 12: the flagship per-model engine's logits on the card at both
     precisions, then the small configurations, against the oracle on the
@@ -2884,14 +2912,8 @@ def whole_chain_logits(scan):
     launches of the exact and the fast run."""
     phase('whole chain logits: the flagship vertebrae model on the card '
           'against the oracle (numpy, scipy, the UNet on the CPU in fp32)')
-    import importlib.util
     from totalsegmentator2d_tpu_torch.inference import InferenceEngine
-    # by its file: a package named tools elsewhere on the path would
-    # shadow the repository's directory
-    spec = importlib.util.spec_from_file_location(
-        'ts2d_torch_parity', os.path.join(ROOT, 'tools', 'torch_parity.py'))
-    TP = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(TP)
+    TP = load_tool('torch_parity')
     t_phase = time.perf_counter()
     arr = projection(scan)
     spec, nets, sds = TP.build_config('bench-arch')
@@ -2966,13 +2988,93 @@ def whole_chain_logits(scan):
     return launches
 
 
-PHASES = frozenset(range(1, 13))
+# -- 13. the containment harnesses on the card ----------------------------------
+
+SOAK_MINUTES = 1.5   # chaos in the middle 30 s
+SOAK_CHAOS = 0.2     # crashes per dispatch in the chaos window
+FUZZ_TRIALS = 800    # mutations per target (the fuzzer's default)
+FUZZ_TIMEOUT = 600   # s the fuzzer may take, killed and failing past it
+
+
+def soak_phase(db, scan, fused_per_scan):
+    """13a: the soak of the HTTP server around the fast flagship set.
+    Returns (launches, programs) of its run."""
+    from totalsegmentator2d_tpu_torch.io import write_image
+    phase(f'soak: TS2DServer around the fast flagship set, batching on, 4 '
+          f'clients, {SOAK_MINUTES * 60:.0f} s, dispatcher crashes '
+          f'({SOAK_CHAOS} per dispatch) in the middle third')
+    SS = load_tool('torch_soak_serve')
+    # 6c's payload: the uncompressed NRRD (phase 9 writes a gzip one)
+    path = os.path.join(WORK, 'soak.nrrd')
+    os.makedirs(WORK, exist_ok=True)
+    write_image(scan, path, compress=False)
+    res = SS.soak(db, 'ts2d-v9-flagship', path, SOAK_MINUTES, SOAK_CHAOS,
+                  'cuda', 'fast', fused_per_scan, say=print)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mib = [None if b is None else round(b / 2**20, 1)
+           for b in res['device_bytes']]
+    print(f'status counts: {res["statuses"]}')
+    print(f'{res["requests"]} requests in {res["seconds"]:.1f} s '
+          f'({res["requests_per_s"]:.3f}/s); {res["predict_200"]} predicts '
+          f'answered 200 (by third {res["predict_200_by_third"]}, '
+          f'{res["nonbitwise_200"]} not bit for bit the solo reference, '
+          f'least agreement {res["min_agreement"]}), latency p50 '
+          f'{res["latency_p50_s"]:.3f} s, p95 {res["latency_p95_s"]:.3f} s')
+    print(f'dispatcher crashes injected {res["injected"]}, counted '
+          f'{res["crashes_counted"]}; programs {res["programs"]} by '
+          f'occupancy {res["occupancy"]}; RSS {res["rss_mb"][0]} -> '
+          f'{res["rss_mb"][1]} MB (at the end of each third '
+          f'{res["rss_mb_by_third"]}; heap trims '
+          f'{res["metrics"].get("heap_trims")}, '
+          f'{res["metrics"].get("heap_trim_seconds_total", 0.0):.4f} s); '
+          f'device memory allocated {mib[0]} -> '
+          f'{mib[1]} MiB; launches {res["launches"]}, per program '
+          f'{res["launches_per_program"]}')
+    if not res['ok']:
+        raise SystemExit(f'phase 13 soak: {res["errors"][:8]}')
+    want = {'bspline_prefilter': 2, 'fused_norm_act_conv': fused_per_scan}
+    if res['launches_per_program'] != want or res['programs'] < 1:
+        raise SystemExit(f'phase 13 soak: launches per program '
+                         f'{res["launches_per_program"]}, expected {want}')
+    return res['launches'], res['programs']
+
+
+def fuzz_phase():
+    """13b: the ingest fuzzer with the native library, in a child."""
+    phase(f'ingest fuzzer: every target, {FUZZ_TRIALS} mutations each and '
+          f'every 3rd truncation, native on')
+    import signal
+    t0 = time.perf_counter()
+    # its own session: past the limit the fuzzer and its leg's child die
+    # together
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, 'tools', 'torch_fuzz_ingest.py'),
+         '--native', 'on', '--trials', str(FUZZ_TRIALS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=FUZZ_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f'phase 13 fuzzer: past {FUZZ_TIMEOUT} s, killed')
+    lines = [ln for ln in out.splitlines() if not ln.startswith('== ')]
+    print('\n'.join(lines[-60:]))
+    print(f'fuzzer: {time.perf_counter() - t0:.1f} s, rc {proc.returncode}')
+    if proc.returncode != 0:
+        raise SystemExit(f'phase 13 fuzzer (rc {proc.returncode}):\n'
+                         f'{out[-2000:]}\n{err[-2000:]}')
+
+
+PHASES = frozenset(range(1, 14))
 
 
 def main(phases=PHASES):
     """Every phase, or with ``--phases 2,11`` a subset (phase 1 always; each
     phase makes the inputs it needs: the database and the seed-7 phantom
-    (phase 12 the phantom only), phase 6's phantoms for phases 7 and 11).
+    (phase 12 the phantom only), phase 6's phantoms for phases 7 and 11,
+    phase 6c's NRRD for phase 13).
     A subset's kernels line holds
     what its phases measured, and only the whole run requires every
     kernel's launches on every path."""
@@ -2987,9 +3089,9 @@ def main(phases=PHASES):
     sites = {}   # [(kernel key, counts by kernel name)] of the phases run
 
     db = os.path.join(WORK, 'db_flagship')
-    if phases & {3, 6, 7, 8, 9, 11, 12}:
+    if phases & {3, 6, 7, 8, 9, 11, 12, 13}:
         t0 = time.perf_counter()
-        if phases & {3, 6, 7, 8, 9, 11}:
+        if phases & {3, 6, 7, 8, 9, 11, 13}:
             write_database(db, 'ts2d-v9-flagship', GROUPS, FLAGSHIP, seed=100)
         scan = torso_ct((400, 512, 512), (0.78, 0.78, 1.25), seed=7)
         print(f'database + phantom in {time.perf_counter() - t0:.1f} s')
@@ -3041,6 +3143,12 @@ def main(phases=PHASES):
             for k in kernels:
                 k.setdefault(f'logits_{precision}', {})['launches'] = \
                     counts[k['name']]
+    if 13 in phases:
+        # per program of the soak's server (solo and batched)
+        counts, programs = soak_phase(db, scan, fused_per_scan)
+        for k in kernels:
+            k['soak'] = {'launches': counts[k['name']], 'programs': programs}
+        fuzz_phase()
     for k in kernels:
         name = k['name']
         for key, counts in sites.items():

@@ -18,7 +18,9 @@ it opens and every library it loads (audit hooks), and none lies under the
 reference package's ``_native/``. The rank processes of
 tests/test_torch_parallel*.py install the same refusals. The port's parity
 tool, tools/torch_parity.py, is held to the same: statically, and by its
-offline mode run under the refusals."""
+offline mode run under the refusals; so are the ingest fuzzer,
+tools/torch_fuzz_ingest.py, and the serving soak, tools/torch_soak_serve.py,
+each run small under them."""
 
 import ast
 import os
@@ -34,6 +36,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'totalsegmentator2d_tpu_torch')
 
 
+#: the port's tools: the parity harness, the ingest fuzzer, the soak
+HARNESSES = ('torch_parity.py', 'torch_fuzz_ingest.py', 'torch_soak_serve.py')
+
 _REFUSED = ('jax', 'jaxlib', 'totalsegmentator2d_tpu', 'PIL', 'optax',
             'orbax')
 
@@ -48,7 +53,8 @@ def _sources():
             if fn.endswith('.py'):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(REPO, 'chip_smoke.py')
-    yield os.path.join(REPO, 'tools', 'torch_parity.py')
+    for tool in HARNESSES:
+        yield os.path.join(REPO, 'tools', tool)
 
 
 @pytest.mark.parametrize('name,blocked', [
@@ -68,7 +74,7 @@ def test_no_import_statement_reaches_jax():
             'parallel/mesh.py', 'parallel/sharding.py', 'parallel/ensemble.py',
             'parallel/collectives.py', 'parallel/dryrun.py',
             'training/sharded.py',
-            os.path.join('..', 'tools', 'torch_parity.py')} <= scanned
+            *(os.path.join('..', 'tools', t) for t in HARNESSES)} <= scanned
     found = []
     for path in _sources():
         with open(path) as f:
@@ -235,6 +241,55 @@ def test_parity_tool_runs_with_jax_blocked(tmp_path):
     assert set(chain['assets']) == {'sample_s0521'}
     assert set(report['checks']['fused-vs-permodel']['agreement']) == {
         'sample_s0521'}
+
+
+_HARNESS_CHILD = r'''
+import importlib.util, sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'totalsegmentator2d_tpu',
+                                  'requests', 'PIL', 'optax', 'orbax'):
+            raise ImportError(f'blocked import: {name}')
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import torch
+torch.set_num_threads(2)   # it runs beside the other test workers
+
+def tool(name):
+    spec = importlib.util.spec_from_file_location(name, sys.argv[1] + name
+                                                  + '.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+fuzz = tool('torch_fuzz_ingest')
+report = fuzz.run_leg('on', trials=2, step=10 ** 6,
+                      names={'x.png', 'strip-lzw.tif', 'jll', 'slice-rle.dcm'})
+assert not report['leaks'] and not report['bases'], report
+assert len(report['targets']) == 4, report['targets']
+rc = tool('torch_soak_serve').main(['--device', 'cpu', '--minutes', '0.03'])
+leaked = [m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'totalsegmentator2d_tpu', 'requests', 'PIL', 'optax',
+    'orbax')]
+assert not leaked, leaked
+sys.exit(rc)
+'''
+
+
+def test_harness_tools_run_with_jax_blocked(tmp_path):
+    """tools/torch_fuzz_ingest.py (4 targets, native on, in the process)
+    and tools/torch_soak_serve.py (1.8 s on the CPU) in a fresh interpreter
+    that refuses the reference package, jax and Pillow: both run, and
+    nothing of theirs was imported."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _HARNESS_CHILD,
+         os.path.join(REPO, 'tools', '')],
+        cwd=str(tmp_path), env=dict(os.environ), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == 'SOAK PASS'
 
 
 def test_rank_processes_refuse_the_same_imports():

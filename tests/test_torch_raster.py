@@ -330,7 +330,8 @@ def _tiff_bytes(arr, bits, fmt, tile, big_endian=False, strip_rows=None):
 @pytest.mark.parametrize('tile', [None, (16, 16)])
 def test_tiff_sample_formats_tiles_strips(tmp_path, dtype, bits, fmt, tile):
     """Unsigned, signed and float samples, in tiles cut at the edges and in
-    strips of 3 rows (the last one short)."""
+    strips of 3 rows, which divide the 21 rows (a short last strip:
+    test_tiff_bytes_short_last_strip)."""
     rng = np.random.default_rng(bits + fmt)
     if np.issubdtype(dtype, np.floating):
         arr = rng.standard_normal((21, 35)).astype(dtype)
@@ -341,6 +342,82 @@ def test_tiff_sample_formats_tiles_strips(tmp_path, dtype, bits, fmt, tile):
     p = tmp_path / 'x.tif'
     p.write_bytes(_tiff_bytes(arr, bits, fmt, tile, strip_rows=3))
     _same(p)
+
+
+# -- strips: the last one short --------------------------------------------------
+
+_MODE_BITS = {'1': 1, 'L': 8, 'P': 8, 'LA': 16, 'I;16': 16, 'I': 32, 'F': 32,
+              'RGB': 24, 'RGBA': 32}
+
+
+def _rows_per_strip(path):
+    with Image.open(path) as im:
+        return im.tag_v2[278], im.size[1]
+
+
+def _assert_short_last_strip(path):
+    rps, h = _rows_per_strip(path)
+    assert h % rps != 0, (h, rps)   # else the case loses its point
+
+
+@pytest.mark.parametrize('mode', ['1', 'L', 'I;16', 'I', 'F', 'RGB', 'RGBA',
+                                  'LA', 'P'])
+@pytest.mark.parametrize('compression', [None, 'packbits', 'tiff_lzw',
+                                         'tiff_adobe_deflate'])
+def test_tiff_pillow_short_last_strip(tmp_path, mode, compression):
+    """Pillow's strips of 4 rows over 47: libtiff's writer takes them from
+    ``strip_size``; its own uncompressed writer (one strip by default) from
+    RowsPerStrip in ``tiffinfo``. The last strip holds 3 rows."""
+    h, w = 47, 37
+    p = tmp_path / 'x.tif'
+    im = _pil_image(mode, np.random.default_rng(12), (h, w))
+    if compression is None:
+        im.save(p, tiffinfo={278: 4})
+    else:
+        im.save(p, compression=compression,
+                strip_size=4 * -(-w * _MODE_BITS[mode] // 8))
+    _assert_short_last_strip(p)
+    _same(p)
+
+
+@pytest.mark.parametrize('mode', ['L', 'RGB', 'F'])
+@pytest.mark.parametrize('compression', ['packbits', 'tiff_adobe_deflate'])
+def test_tiff_pillow_default_strips(tmp_path, mode, compression):
+    """At 301 x 517 Pillow's 64 KiB strips hold 126, 42 or 31 rows: the
+    last strip is short."""
+    p = tmp_path / 'x.tif'
+    _pil_image(mode, np.random.default_rng(13), (301, 517)).save(
+        p, compression=compression)
+    _assert_short_last_strip(p)
+    _same(p)
+
+
+@pytest.mark.parametrize('mode', ['L', 'I;16', 'RGB'])
+@pytest.mark.parametrize('compression', ['tiff_lzw', 'tiff_adobe_deflate'])
+def test_tiff_predictor_short_last_strip(tmp_path, mode, compression):
+    h, w = 47, 61
+    p = tmp_path / 'x.tif'
+    _pil_image(mode, np.random.default_rng(14), (h, w)).save(
+        p, compression=compression, tiffinfo={317: 2},
+        strip_size=3 * -(-w * _MODE_BITS[mode] // 8))
+    _assert_short_last_strip(p)
+    _same(p)
+
+
+@pytest.mark.parametrize('dtype,bits,fmt', [
+    (np.uint8, 8, 1), (np.uint16, 16, 1), (np.int16, 16, 2),
+    (np.float32, 32, 3)])
+@pytest.mark.parametrize('strip_rows', [4, 5, 20])
+@pytest.mark.parametrize('big_endian', [False, True])
+def test_tiff_bytes_short_last_strip(tmp_path, dtype, bits, fmt, strip_rows,
+                                     big_endian):
+    rng = np.random.default_rng(bits + strip_rows)
+    arr = (rng.standard_normal((21, 35)) * 1000).astype(dtype)
+    p = tmp_path / 'x.tif'
+    p.write_bytes(_tiff_bytes(arr, bits, fmt, None, big_endian=big_endian,
+                              strip_rows=strip_rows))
+    _assert_short_last_strip(p)
+    np.testing.assert_array_equal(_same(p).array, arr)
 
 
 def test_tiff_big_endian_signed(tmp_path):
@@ -396,3 +473,115 @@ def test_garbage_and_unsupported_raise(tmp_path):
     _pil_image('L', np.random.default_rng(0)).save(jpeg, compression='jpeg')
     with pytest.raises(ValueError, match='compression 7'):
         port_io.read_image(str(jpeg))
+
+
+# -- TIFF containment: every corrupt file is a ValueError ------------------------
+
+def _sweep_bases():
+    """The (13, 17) uint16 image tiled (16, 16), and as int16 in strips of
+    5 rows (the last one short)."""
+    img = np.random.default_rng(3).integers(0, 65536, (13, 17)).astype(np.uint16)
+    return {'tiled': _tiff_bytes(img, 16, 1, (16, 16)),
+            'strip': _tiff_bytes(img.astype(np.int16), 16, 2, None,
+                                 strip_rows=5)}
+
+
+def _edit_entry(data, tag, *, new_tag=None, typ=None, count=None, value=None):
+    """A little-endian TIFF with one directory entry changed in place."""
+    data = bytearray(data)
+    (ifd,) = struct.unpack_from('<I', data, 4)
+    (n,) = struct.unpack_from('<H', data, ifd)
+    for k in range(n):
+        at = ifd + 2 + 12 * k
+        t, ty, c = struct.unpack_from('<HHI', data, at)
+        if t == tag:
+            struct.pack_into('<HHI', data, at, t if new_tag is None else new_tag,
+                             ty if typ is None else typ,
+                             c if count is None else count)
+            if value is not None:
+                struct.pack_into('<I', data, at + 8, value)
+            return bytes(data)
+    raise KeyError(tag)
+
+
+@pytest.mark.parametrize('base,tag,edit,field', [
+    ('tiled', 322, dict(new_tag=65000), 'TileWidth'),
+    ('tiled', 323, dict(new_tag=65000), 'TileLength'),
+    ('tiled', 325, dict(new_tag=65000), 'TileByteCounts'),
+    ('tiled', 324, dict(count=1), 'TileOffsets'),
+    ('tiled', 322, dict(value=0), 'TileWidth'),
+    ('tiled', 256, dict(count=2), 'ImageWidth'),
+    ('tiled', 256, dict(value=11), 'TileOffsets'),
+    ('tiled', 257, dict(typ=5), 'ImageLength'),
+    ('strip', 273, dict(new_tag=65000), 'StripOffsets'),
+    ('strip', 279, dict(new_tag=65000), 'StripByteCounts'),
+    ('strip', 278, dict(typ=11), 'RowsPerStrip'),
+    ('strip', 278, dict(value=0), 'RowsPerStrip'),
+    ('strip', 277, dict(typ=11), 'SamplesPerPixel'),
+    ('strip', 277, dict(count=2), 'SamplesPerPixel'),
+    ('strip', 257, dict(value=18), 'StripOffsets'),
+    ('strip', 258, dict(typ=12), 'BitsPerSample'),
+])
+def test_tiff_bad_field_raises_naming_it(tmp_path, base, tag, edit, field):
+    """A missing field, a count other than one where one value is read, a
+    type other than an integer's, a zero dimension, and strips or tiles more
+    or fewer than the geometry has: ``ValueError`` naming the field (once a
+    KeyError, a TypeError or Python's own unpacking message)."""
+    p = tmp_path / 'x.tif'
+    p.write_bytes(_edit_entry(_sweep_bases()[base], tag, **edit))
+    with pytest.raises(ValueError, match=f'Corrupt raster image file .*{field}'):
+        port_io.read_image(str(p))
+
+
+def test_tiff_extra_tiles_are_refused(tmp_path):
+    """Two tiles where the geometry has one (ImageWidth 17 -> 11, a mutant of
+    the sweep below): Pillow's own decoder paints the second tile again at
+    the top-left corner (its planar layer wrap), libtiff drops it, the port
+    refuses the file."""
+    p = tmp_path / 'x.tif'
+    p.write_bytes(_edit_entry(_sweep_bases()['tiled'], 256, value=11))
+    img = np.random.default_rng(3).integers(0, 65536, (13, 17)).astype(np.uint16)
+    pillow = jax_io.read_image(str(p)).array
+    assert pillow.shape == (13, 11) and not np.array_equal(pillow, img[:, :11])
+    with pytest.raises(ValueError, match='TileOffsets holds 2 values for 1'):
+        port_io.read_image(str(p))
+
+
+@pytest.mark.parametrize('base', ['tiled', 'strip'])
+def test_tiff_mutation_sweep(tmp_path, base):
+    """2,000 mutants of each base, 1-3 random bytes each (seed 11): every
+    failure of the port is a ValueError, and where the reference's Pillow
+    reader decodes too the arrays are equal, dtype included. Where Pillow
+    leaks a foreign exception (OverflowError, TypeError), the port's
+    ValueError counts as agreement."""
+    data0 = _sweep_bases()[base]
+    rng = np.random.default_rng(11)
+    p = tmp_path / 'x.tif'
+    both = 0
+    for trial in range(2000):
+        data = bytearray(data0)
+        for _ in range(int(rng.integers(1, 4))):
+            data[int(rng.integers(0, len(data)))] = int(rng.integers(0, 256))
+        p.write_bytes(bytes(data))
+        try:
+            ours = port_io.read_image(str(p)).array
+        except ValueError:
+            continue
+        try:
+            ref = jax_io.read_image(str(p)).array
+        except Exception:  # noqa: BLE001 - Pillow's refusal, or its leak
+            continue
+        assert ours.dtype == ref.dtype and np.array_equal(ours, ref), trial
+        both += 1
+    assert both >= 1000, both   # most mutants touch pixels only
+
+
+def test_tiff_sample_count_is_checked_before_it_sizes_anything(tmp_path):
+    """SamplesPerPixel 2**31 with one BitsPerSample value: refused before the
+    value is repeated per sample (a mutant of the fuzzer's deflate strips
+    once grew the process by gigabytes here)."""
+    p = tmp_path / 'x.tif'
+    p.write_bytes(_edit_entry(_sweep_bases()['strip'], 277, typ=4,
+                             value=2 ** 31))
+    with pytest.raises(ValueError, match='2147483648 samples per pixel'):
+        port_io.read_image(str(p))

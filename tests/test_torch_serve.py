@@ -319,6 +319,71 @@ def test_concurrent_predicts_batched(root, tmp_path):
         assert float((seg == solo).mean()) >= 0.999
 
 
+@pytest.mark.parametrize('request_timeout', [None, 60.0])
+def test_failed_predict_frees_its_image(root, monkeypatch, request_timeout):
+    """A predict whose batched dispatch fails answers 500 and lets go of
+    its request's image at once: the batcher's future keeps the exception,
+    and a traceback through the frames that hold that future would keep
+    the image alive until a full garbage collection (gigabytes under a
+    burst of failures of 400-slice CTs)."""
+    import gc
+    import weakref
+
+    import totalsegmentator2d_tpu_torch.io as tio
+    from totalsegmentator2d_tpu_torch.inference.batching import \
+        DynamicBatcher
+
+    def dispatch(batcher, key, take):
+        raise RuntimeError('injected dispatch failure')
+
+    images = []
+    read = tio.read_image
+
+    def read_image(path):
+        img = read(path)
+        images.append(weakref.ref(img))
+        return img
+
+    monkeypatch.setattr(DynamicBatcher, '_dispatch', dispatch)
+    monkeypatch.setattr(tio, 'read_image', read_image)
+    with TS2D(key=KEY, use_remote=False, local=root, device='cpu') as tool:
+        with TS2DServer(tool, port=0, request_timeout=request_timeout) as srv:
+            gc.collect()
+            gc.disable()
+            try:
+                status, body, _ = _post(srv, _payload())
+                alive = [ref() is not None for ref in images]
+            finally:
+                gc.enable()
+    assert status == 500 and b'injected dispatch failure' in body
+    assert alive == [False]
+
+
+def test_last_predict_returns_the_free_heap(server, monkeypatch):
+    """The predict that leaves none executing trims the C heap before it
+    answers; one that finishes beside another does not."""
+    import totalsegmentator2d_tpu_torch.serve as serve
+    calls = []
+    monkeypatch.setattr(serve, '_release_free_heap',
+                        lambda: calls.append(srv._predicting))
+    srv = TS2DServer(server.tool, port=0)
+    srv._handle_predict = lambda body, query: (200, 'application/json',
+                                               b'{}')
+    srv.start()
+    try:
+        assert _post(srv, b'x')[0] == 200
+        assert calls == [0]
+        with srv._active_cv:
+            srv._predicting += 1   # another predict still executing
+        assert _post(srv, b'x')[0] == 200
+        assert calls == [0] and srv._predicting == 1
+        metrics = json.loads(_get(srv, '/metrics')[1])
+    finally:
+        srv.stop()
+    assert metrics['heap_trims'] == 1
+    assert metrics['heap_trim_seconds_total'] >= 0.0
+
+
 class TestProductionKnobs:
     def test_auth_token_required(self, server):
         srv = TS2DServer(server.tool, port=0, auth_token='sekret').start()

@@ -14,7 +14,8 @@ mode for mode, with unit spacing and a zero origin:
   BI_BITFIELDS, bottom-up or top-down: a palette that is the identity gray
   ramp (black and white at 1 bit) drops to ``1`` / ``L``, any other stays
   ``P`` indices; 32 bits -> RGB, or RGBA where the bitfields name alpha.
-- TIFF, the first image, baseline strips or tiles, uncompressed, PackBits,
+- TIFF, the first image, baseline strips (the last one holding the rows
+  that are left) or tiles, uncompressed, PackBits,
   LZW or Deflate, horizontal predictor 2: 1-bit -> bool, 8-bit gray (white
   is zero inverted), 16-bit unsigned -> uint16 (big-endian ``>u2`` when
   uncompressed, as Pillow leaves it), int16 / int32 / uint32 -> int32
@@ -24,14 +25,17 @@ mode for mode, with unit spacing and a zero origin:
 Anything else (RLE BMPs, JPEG or CCITT TIFFs, planar TIFFs, bit-order 2,
 premultiplied alpha, ...) raises ``ValueError`` naming the feature; a
 corrupt or truncated file raises ``ValueError('Corrupt raster image file
-...')``, as the reference does.
+...')``, as the reference does. That includes a TIFF field that is missing,
+holds another number of values than is read, or is not an integer where
+one is read (each named), and a TIFF whose strips or tiles are more or
+fewer than its geometry has.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -321,11 +325,14 @@ def _bmp(data: bytes) -> np.ndarray:
 
 _TIFF_TYPES = {1: 'B', 2: 'B', 3: 'H', 4: 'I', 5: 'II', 6: 'b', 7: 'B',
                8: 'h', 9: 'i', 10: 'ii', 11: 'f', 12: 'd'}
+#: the integer field types: BYTE, SHORT, LONG, SBYTE, SSHORT, SLONG
+_TIFF_INTS = (1, 3, 4, 6, 8, 9)
 _COMPRESSIONS = {1: 'raw', 5: 'LZW', 8: 'Deflate', 32946: 'Deflate',
                  32773: 'PackBits'}
 
 
-def _tiff_tags(data: bytes, bo: str) -> Dict[int, tuple]:
+def _tiff_tags(data: bytes, bo: str) -> Dict[int, Tuple[int, tuple]]:
+    """{tag: (field type, values)} of the first directory."""
     (ifd,) = struct.unpack_from(bo + 'I', data, 4)
     _need(data, ifd + 2, 'TIFF directory')
     (n,) = struct.unpack_from(bo + 'H', data, ifd)
@@ -341,39 +348,82 @@ def _tiff_tags(data: bytes, bo: str) -> Dict[int, tuple]:
         if size > 4:
             (at,) = struct.unpack_from(bo + 'I', data, at)
         _need(data, at + size, f'TIFF tag {tag}')
-        vals = struct.unpack_from(bo + fmt * count, data, at)
-        tags[tag] = vals
+        tags[tag] = (typ, struct.unpack_from(bo + fmt * count, data, at))
     return tags
+
+
+def _tiff_ints(t: dict, tag: int, name: str,
+               default: Optional[tuple] = None, least: int = 0) -> tuple:
+    """The values of an integer field, each at least ``least``; a missing
+    field is ``default``, or refused where there is none."""
+    if tag not in t:
+        if default is None:
+            raise _Corrupt(f'TIFF: missing {name} (tag {tag})')
+        return default
+    typ, vals = t[tag]
+    if typ not in _TIFF_INTS:
+        raise _Corrupt(f'TIFF: {name} (tag {tag}) is not an integer field '
+                       f'(type {typ})')
+    if vals and min(vals) < least:
+        raise _Corrupt(f'TIFF: {name} (tag {tag}) holds {min(vals)}, less '
+                       f'than {least}')
+    return vals
+
+
+def _tiff_int(t: dict, tag: int, name: str, default: Optional[int] = None,
+              least: int = 0) -> int:
+    """The one value of an integer field (see :func:`_tiff_ints`)."""
+    vals = _tiff_ints(t, tag, name, None if default is None else (default,),
+                      least)
+    if len(vals) != 1:
+        raise _Corrupt(f'TIFF: {name} (tag {tag}) holds {len(vals)} values '
+                       f'where one is read')
+    return vals[0]
+
+
+def _tiff_blocks(t: dict, offsets_tag: int, counts_tag: int, what: str,
+                 n: int) -> Tuple[tuple, tuple]:
+    """The offsets and byte counts of the n strips or tiles the geometry
+    has. Another number of them is refused: Pillow's own decoder paints
+    extra blocks again from the top-left corner, libtiff drops them."""
+    offsets = _tiff_ints(t, offsets_tag, f'{what}Offsets')
+    counts = _tiff_ints(t, counts_tag, f'{what}ByteCounts')
+    for name, vals in ((f'{what}Offsets', offsets),
+                       (f'{what}ByteCounts', counts)):
+        if len(vals) != n:
+            raise _Corrupt(f'TIFF: {name} holds {len(vals)} values for '
+                           f'{n} {what.lower()}s')
+    return offsets, counts
 
 
 def _tiff(data: bytes) -> np.ndarray:
     bo = '<' if data[:2] == b'II' else '>'
     t = _tiff_tags(data, bo)
-    get = lambda tag, default: t.get(tag, default)  # noqa: E731
-    try:
-        (w,), (h,) = t[256], t[257]
-    except KeyError:
-        raise _Corrupt('TIFF: missing dimensions') from None
+    w = _tiff_int(t, 256, 'ImageWidth', least=1)
+    h = _tiff_int(t, 257, 'ImageLength', least=1)
     _check_size(w, h)
-    comp = get(259, (1,))[0]
+    comp = _tiff_int(t, 259, 'Compression', 1)
     if comp not in _COMPRESSIONS:
         raise ValueError(f'TIFF: compression {comp} is not supported (none, '
                          f'PackBits, LZW and Deflate are)')
-    photo = get(262, (0,))[0]
-    fillorder = get(266, (1,))[0]
-    planar = get(284, (1,))[0]
-    predictor = get(317, (1,))[0]
-    orientation = get(274, (1,))[0]
+    photo = _tiff_int(t, 262, 'PhotometricInterpretation', 0)
+    fillorder = _tiff_int(t, 266, 'FillOrder', 1)
+    planar = _tiff_int(t, 284, 'PlanarConfiguration', 1)
+    predictor = _tiff_int(t, 317, 'Predictor', 1)
+    orientation = _tiff_int(t, 274, 'Orientation', 1)
     if fillorder != 1 or planar != 1 or orientation != 1:
         raise ValueError(f'TIFF: FillOrder {fillorder}, PlanarConfiguration '
                          f'{planar} or Orientation {orientation} is not '
                          f'supported (1 each is)')
     if predictor not in (1, 2):
         raise ValueError(f'TIFF: predictor {predictor} is not supported')
-    spp = get(277, (1,))[0]
-    bps = get(258, (1,))
-    extra = get(338, ())
-    fmt = get(339, (1,))
+    spp = _tiff_int(t, 277, 'SamplesPerPixel', 1)
+    if not 1 <= spp <= 4:
+        raise ValueError(f'TIFF: {spp} samples per pixel are not supported '
+                         f'(1 to 4 are)')
+    bps = _tiff_ints(t, 258, 'BitsPerSample', (1,))
+    extra = _tiff_ints(t, 338, 'ExtraSamples', ())
+    fmt = _tiff_ints(t, 339, 'SampleFormat', (1,))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
     if len(bps) > spp:
@@ -391,6 +441,7 @@ def _tiff(data: bytes) -> np.ndarray:
                          'supported')
 
     def block(k: int, offsets, counts, bw: int, bh: int) -> np.ndarray:
+        """Block k, bh rows of bw pixels, decompressed and checked."""
         start, n = offsets[k], counts[k]
         _need(data, start + n, 'TIFF strip or tile')
         raw = data[start:start + n]
@@ -399,7 +450,9 @@ def _tiff(data: bytes) -> np.ndarray:
         if comp == 5:
             raw = _lzw(raw, need)
         elif comp in (8, 32946):
-            raw = zlib.decompress(raw)
+            # as libtiff, inflate no more than the block holds: a stream
+            # that would give more is cut there, never buffered whole
+            raw = zlib.decompressobj().decompress(raw, need)
         elif comp == 32773:
             raw = _packbits(raw, need)
         if len(raw) < need:
@@ -409,32 +462,33 @@ def _tiff(data: bytes) -> np.ndarray:
             rows = _undo_predictor(rows, bo, bits, spp)
         return rows
 
-    img = np.zeros((h, rowbytes), np.uint8)
-    if 273 in t:
-        rps = min(get(278, (h,))[0], h)
-        offsets, counts = t[273], get(279, None)
-        if counts is None or len(counts) != len(offsets):
-            raise _Corrupt('TIFF: missing StripByteCounts')
-        for k in range(-(-h // rps)):
-            rows = block(k, offsets, counts, w, rps)
+    if 273 in t or 324 not in t:
+        rps = min(_tiff_int(t, 278, 'RowsPerStrip', h, least=1), h)
+        n = -(-h // rps)
+        offsets, counts = _tiff_blocks(t, 273, 279, 'Strip', n)
+        img = np.zeros((h, rowbytes), np.uint8)
+        for k in range(n):
+            # the last strip holds the rows that are left
             y0 = k * rps
-            img[y0:y0 + rps] = rows[:h - y0]
-    elif 324 in t:
-        (tw,), (th,) = t[322], t[323]
-        offsets, counts = t[324], t[325]
+            rows = min(rps, h - y0)
+            img[y0:y0 + rows] = block(k, offsets, counts, w, rows)
+    else:
+        # tiles are whole, at the edges too: the image crops them
+        tw = _tiff_int(t, 322, 'TileWidth', least=1)
+        th = _tiff_int(t, 323, 'TileLength', least=1)
         if bits * spp % 8:
             raise ValueError('TIFF: tiles of sub-byte pixels are not '
                              'supported')
         bpp = bits * spp // 8
         across = -(-w // tw)
+        offsets, counts = _tiff_blocks(t, 324, 325, 'Tile',
+                                       across * -(-h // th))
+        img = np.zeros((h, rowbytes), np.uint8)
         for k in range(len(offsets)):
             rows = block(k, offsets, counts, tw, th)
             y0, x0 = (k // across) * th, (k % across) * tw
             hh, ww = min(th, h - y0), min(tw, w - x0)
-            if hh > 0 and ww > 0:
-                img[y0:y0 + hh, x0 * bpp:(x0 + ww) * bpp] = rows[:hh, :ww * bpp]
-    else:
-        raise _Corrupt('TIFF: no strips or tiles')
+            img[y0:y0 + hh, x0 * bpp:(x0 + ww) * bpp] = rows[:hh, :ww * bpp]
     return _tiff_pixels(img, bo, bits, spp, w, mode, photo, comp)
 
 

@@ -10,8 +10,8 @@ Endpoints
 ---------
 GET  /health            -> {"status": "ok", "models": [...]}
 GET  /labels            -> {"<model id>": {"1": "heart", ...}, ...}
-GET  /metrics           -> request/latency counters and the micro-batcher's
-                           occupancy (JSON)
+GET  /metrics           -> request/latency counters, the heap trims, and
+                           the micro-batcher's occupancy (JSON)
 POST /predict           body: an image file (NRRD, NIfTI, MetaImage or one
                         DICOM file, incl. Enhanced multi-frame), or a zipped
                         DICOM slice series (input_format=zip, the PACS-push
@@ -37,11 +37,16 @@ past a per-predict wall-clock budget; ``--max-body-mb`` caps request
 bodies (413), and a zipped series is refused (400) when its declared
 decompressed size passes 8 GiB in all or ZIP_MEMBER_MAX_BYTES in one
 member; shutdown (SIGINT / ``stop()``) drains in-flight predicts,
-new ones answer 503, before returning.
+new ones answer 503, before returning. The predict that leaves none
+executing returns the C heap's free pages to the OS before it answers
+(``heap_trims`` in /metrics), and a failed predict drops its traceback
+once logged: a server of 200 MB bodies falls back to its size after a
+burst, failed requests included.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hmac
 import json
 import os
@@ -77,6 +82,36 @@ def _error(status: int, message: str):
     return status, 'application/json', json.dumps({'error': message}).encode()
 
 
+def _forget_frames(ex: BaseException) -> None:
+    """Drop the tracebacks of a failed predict's exception chain. The
+    futures it passed through (the batcher's, the request pool's) keep the
+    exception, and its traceback keeps the frames that hold those futures:
+    a reference cycle that holds the request's body and images (hundreds
+    of MB for a 400-slice CT) until a full garbage collection, so a burst
+    of failed requests grows the process by gigabytes."""
+    todo, seen = [ex], set()
+    while todo:
+        e = todo.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        e.__traceback__ = None
+        todo += [e.__cause__, e.__context__]
+
+
+#: glibc's, where the C library has it
+_malloc_trim = getattr(ctypes.CDLL(None), 'malloc_trim', None)
+
+
+def _release_free_heap() -> None:
+    """Return the C heap's free pages to the OS (a no-op without glibc). A
+    request's buffers of a few MB land in the malloc arena of the thread
+    that served it, and the arenas keep them once freed: after a burst of
+    large requests the process holds hundreds of MB it no longer uses."""
+    if _malloc_trim is not None:
+        _malloc_trim(0)
+
+
 class TS2DServer:
     def __init__(self, tool, host: str = '127.0.0.1', port: int = 8008,
                  max_body_bytes: int = DEFAULT_MAX_BODY,
@@ -103,12 +138,16 @@ class TS2DServer:
         self._active_cv = threading.Condition()
         self._active = 0
         self._draining = False
+        # predicts executing (not their responses being written): the last
+        # to finish returns the freed heap before it answers
+        self._predicting = 0
         self._pool = None  # made when request_timeout is set
         self._metrics_lock = threading.Lock()
         self._metrics = {'predict_requests': 0, 'predict_errors': 0,
                          'predict_timeouts': 0,
                          'predict_seconds_total': 0.0,
-                         'predict_seconds_max': 0.0}
+                         'predict_seconds_max': 0.0,
+                         'heap_trims': 0, 'heap_trim_seconds_total': 0.0}
 
     def _check_auth(self, headers) -> bool:
         if self.auth_token is None:
@@ -149,7 +188,7 @@ class TS2DServer:
         too). Timed-out work finishes in its pool worker and holds its own
         drain count."""
         if self.request_timeout is None:
-            return self._handle_predict(body, query)
+            return self._run_predict(body, query)
         with self._active_cv:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
@@ -161,7 +200,11 @@ class TS2DServer:
         def task():
             started.set()
             try:
-                return self._handle_predict(body, query)
+                return self._run_predict(body, query)
+            except BaseException as ex:
+                # no handler reads the failure of a request that timed out
+                _forget_frames(ex)
+                raise
             finally:
                 with self._active_cv:
                     self._active -= 1
@@ -221,6 +264,26 @@ class TS2DServer:
         return 200, 'application/json', json.dumps({
             mid: {str(v): n for v, n in model.labels.items()}
             for mid, model in self.tool.models.items()}).encode()
+
+    def _run_predict(self, body: bytes, query: dict):
+        """:meth:`_handle_predict`, counted; the predict that leaves none
+        executing gives the freed heap back to the OS before it answers,
+        so the server's memory falls back once a burst is over."""
+        with self._active_cv:
+            self._predicting += 1
+        try:
+            return self._handle_predict(body, query)
+        finally:
+            with self._active_cv:
+                self._predicting -= 1
+                idle = self._predicting == 0
+            if idle:
+                t0 = time.perf_counter()
+                _release_free_heap()
+                with self._metrics_lock:
+                    self._metrics['heap_trims'] += 1
+                    self._metrics['heap_trim_seconds_total'] += (
+                        time.perf_counter() - t0)
 
     def _handle_predict(self, body: bytes, query: dict):
         from .io import read_image, write_image
@@ -363,6 +426,7 @@ class TS2DServer:
                             body, parse_qs(parsed.query))
                     except Exception as ex:
                         warn(f'[serve] predict failed: {ex}')
+                        _forget_frames(ex)
                         result = _error(500, str(ex))
                     server._record(time.perf_counter() - t0,
                                    error=result[0] != 200)
