@@ -42,6 +42,7 @@ from .ops.annotations import combine_segmentations, set_annotation_meta
 from .ops.geometry import reduce_dimensions, reorient, restore_dimension
 from .ops.projection import project_multi
 from .ops.visual import create_visual
+from .utils import trace
 from .utils.config import get_label_colors, get_shared_urls
 from .utils.device import resolve_device
 from .utils.files import mkdirs
@@ -226,8 +227,9 @@ class TS2D:
         """
         input = self._input(input)
         if self._fused is not None:
-            return self._predict_fused_finish(
-                self._predict_fused_dispatch(input, collapse, merge))
+            with trace.span('api.predict', scan=trace.NEW):
+                return self._predict_fused_finish(
+                    self._predict_fused_dispatch(input, collapse, merge))
         cache: dict = {}
         result = {'models': {
             id_: self._predict_model(id_, model, input, collapse, cache)
@@ -270,7 +272,9 @@ class TS2D:
         if self._fused is None:
             return ('sync', self.predict(input, collapse=collapse,
                                          merge=merge))
-        return ('fused', self._predict_fused_dispatch(input, collapse, merge))
+        with trace.span('api.predict_async', scan=trace.NEW):
+            return ('fused', self._predict_fused_dispatch(input, collapse,
+                                                          merge))
 
     def finish_predict(self, handle) -> 'TS2D.Result':
         """Wait for a :meth:`predict_async` handle and return the Result."""
@@ -293,7 +297,8 @@ class TS2D:
         projections = cache.setdefault('projections', {})
         if original.actual_dimension() > 2:
             if 'oriented' not in cache:
-                cache['oriented'] = reorient(original, 'RAI')
+                with trace.span('api.reorient'):
+                    cache['oriented'] = reorient(original, 'RAI')
             todo = [n for _, n in channels if n not in projections]
             projections.update(zip(todo, project_multi(
                 cache['oriented'], todo, axis='coronal')))
@@ -334,27 +339,35 @@ class TS2D:
         cache: dict = {}
         models = list(self.models.items())
         channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
-        model_input = self._model_input(original, models[0][0], channels,
-                                        cache)
-        native_2d = model_input.dim < 3
-        input2d = model_input if native_2d else reduce_dimensions(model_input)
-        arr = input2d.array
-        if not input2d.is_vector:
-            arr = arr[..., None]
+        with trace.span('api.project'):
+            model_input = self._model_input(original, models[0][0], channels,
+                                            cache)
+            native_2d = model_input.dim < 3
+            input2d = (model_input if native_2d
+                       else reduce_dimensions(model_input))
+            arr = input2d.array
+            if not input2d.is_vector:
+                arr = arr[..., None]
+            arr = np.ascontiguousarray(arr, np.float32)
         spacing_yx = tuple(reversed(input2d.spacing))
-        handle = self._fused.predict_array_async(
-            np.ascontiguousarray(arr, np.float32), spacing_yx)
+        handle = self._fused.predict_array_async(arr, spacing_yx)
         return (handle, original, model_input, input2d, cache, collapse,
-                merge)
+                merge, trace.scans())
 
     def _predict_fused_finish(self, ctx) -> 'TS2D.Result':
         """The device half: wait for the ensemble's result and assemble the
-        Result; each model's segmentation is its slice of the merged
-        channels."""
-        (handle, original, model_input, input2d, cache, collapse,
-         merge) = ctx
+        Result."""
+        with trace.span('api.finish_predict', scan=ctx[-1]):
+            merged2d = self._fused.finish_array(ctx[0])
+            with trace.span('api.assemble'):
+                return self._assemble(merged2d, *ctx[1:-1])
+
+    def _assemble(self, merged2d: np.ndarray, original: MedicalImage,
+                  model_input: MedicalImage, input2d: MedicalImage,
+                  cache: dict, collapse: bool, merge: bool) -> 'TS2D.Result':
+        """The Result of a fused run's merged masks: each model's
+        segmentation is its slice of the merged channels."""
         models = list(self.models.items())
-        merged2d = self._fused.finish_array(handle)
         native_2d = model_input.dim < 3
         per_model_input = input2d if collapse else model_input
         result: dict = {'models': {}}

@@ -110,7 +110,8 @@ def ts2d_run(src: str, dest: str, model: Optional[str] = None,
     """Run TS2D on one image or a directory of images. More than one case
     runs through :class:`~.inference.pipeline.ScanPipeline` (read-ahead,
     up to 8 scans in flight for the micro-batcher, background export).
-    ``trace`` writes a torch.profiler trace of the run into that directory;
+    ``trace`` writes a torch.profiler trace of the run into that directory
+    (host ops, the port's spans of utils/trace.py and the card's kernels);
     ``batching=False`` turns micro-batching off for bitwise run-to-run
     consistency (see TS2D). ``visualize`` writes PNG visuals beside the
     files (the CLI's ``--visualize``)."""
@@ -189,7 +190,10 @@ def ts2d_entry_point() -> None:
                              "error without a CUDA device) or 'cpu'.")
     parser.add_argument('--trace', type=str, default=None,
                         help='Write a torch.profiler trace of the run to '
-                             'this directory (open it in Perfetto).')
+                             'this directory (open it in Perfetto): the '
+                             'host ops and the port\'s spans of every '
+                             'thread, from predict_async to the Result, '
+                             'and the card\'s kernels.')
     parser.add_argument('--no-batching', action='store_true',
                         help='Disable micro-batched dispatch (bitwise '
                              'run-to-run consistency; lower directory-mode '

@@ -21,7 +21,9 @@ Threads: the dispatcher launches the programs, one watcher per program
 pre-fetches its result to the host; both run under
 ``torch.inference_mode`` (grad mode is per thread) and launch on the
 default stream, and the download waits on the event recorded right after
-its program, not on the programs launched after it.
+its program, not on the programs launched after it. Each scan's wait in
+the queue, each program's dispatch and each fetch is a span of
+utils/trace.py carrying the scan ids it serves.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.logging import log, warn
 
 
@@ -58,17 +61,20 @@ class _BatchResult:
     _SPLIT_MIN_BYTES = 1_000_000
     _SPLIT_STREAMS = 1
 
-    def __init__(self, dev, compact: Optional[dict] = None, ready=None):
+    def __init__(self, dev, compact: Optional[dict] = None, ready=None,
+                 scans: Tuple[int, ...] = ()):
         self._dev = dev
         self._compact = compact
         self._ready = ready
+        self._scans = scans    # the scan ids it carries, for its span
         self._np: Optional[np.ndarray] = None
         self._lock = threading.Lock()
 
     def get(self) -> np.ndarray:
         with self._lock:
             if self._np is None:
-                with torch.inference_mode():
+                with torch.inference_mode(), trace.span('engine.fetch',
+                                                        scan=self._scans):
                     if self._compact is not None:
                         self._np = self._fetch_compacted()
                     else:
@@ -134,8 +140,11 @@ class DynamicBatcher:
         self._last_submit = 0.0
         # occupancy for /metrics: occupancy[i] programs carried i+1 scans
         self._occupancy = [0] * self.max_batch
+        # for /metrics: scans sent alone by the policy branch that capped
+        # their take at one
+        self._solo_reasons = {'ramp': 0, 'below_min_fill': 0}
         # FIFO of (key, t_enqueued, item); item = (cropped, mask, bbox,
-        # full, future)
+        # full, stamp, future), stamp the queue span's start (utils/trace)
         self._pending: List[Tuple[tuple, float, tuple]] = []
         self._cv = threading.Condition()
         self._stopped = False
@@ -162,7 +171,7 @@ class DynamicBatcher:
                # must not co-batch
                wire)
         fut: Future = Future()
-        item = (cropped, mask, bbox, full, fut)
+        item = (cropped, mask, bbox, full, trace.stamp(), fut)
         with self._cv:
             if self._user_stopped:
                 raise RuntimeError('batcher is stopped')
@@ -191,10 +200,13 @@ class DynamicBatcher:
 
     def stats(self) -> dict:
         """Dispatch occupancy: ``batch_occupancy[i]`` programs carried
-        ``i+1`` real scans, and the totals derived from it."""
+        ``i+1`` real scans, and the totals derived from it;
+        ``batch_solo_reasons``: the scans the policy sent alone, by the
+        reason (the burst ``ramp``, or fewer queued than ``min_fill``)."""
         with self._cv:
             occ = list(self._occupancy)
             crashes = self._crashes_total
+            solo_reasons = dict(self._solo_reasons)
         programs = sum(occ)
         scans = sum((i + 1) * c for i, c in enumerate(occ))
         return {
@@ -204,6 +216,7 @@ class DynamicBatcher:
             'batch_scans_coalesced': scans - occ[0] if occ else 0,
             'batch_mean_occupancy': (scans / programs) if programs else 0.0,
             'batch_dispatcher_crashes': crashes,
+            'batch_solo_reasons': solo_reasons,
         }
 
     def stop(self, timeout: float = 10.0) -> bool:
@@ -300,7 +313,7 @@ class DynamicBatcher:
                         # a ready-full batch of another key goes first; key0
                         # keeps its deadline for the next round
                         self._pending.sort(key=lambda e: e[0] != full)
-                take_cap = None
+                take_cap = solo_reason = None
                 if linger <= 0 and not self._stopped:
                     if self._ramp_left <= 0 and self._inflight == 0:
                         # the device went idle: a fresh burst begins
@@ -311,7 +324,7 @@ class DynamicBatcher:
                         self._ramp_left = 0
                     if self._ramp_left > 0:
                         self._ramp_left -= 1
-                        take_cap = 1
+                        take_cap, solo_reason = 1, 'ramp'
                     else:
                         # device busy: hold the queue while submissions keep
                         # streaming in; dispatch on a full head batch or an
@@ -342,8 +355,10 @@ class DynamicBatcher:
                         if cnt < self.min_fill:
                             # a padded partial batch costs the full program;
                             # this few scans run cheaper as solos
-                            take_cap = 1
+                            take_cap, solo_reason = 1, 'below_min_fill'
                 key, take = self._take_batch(take_cap)
+                if solo_reason is not None:
+                    self._solo_reasons[solo_reason] += 1
             try:
                 self._dispatch(key, take)
                 with self._cv:
@@ -376,6 +391,18 @@ class DynamicBatcher:
                          name='ts2d-batch-watch').start()
 
     def _dispatch(self, key, take):
+        """Close the taken scans' queue spans and run their program, in a
+        span that carries every scan id it serves (0 for a scan submitted
+        while nothing recorded)."""
+        stamps = [it[4] for it in take]
+        for s in stamps:
+            trace.record('batcher.queue', s)
+        ids = (tuple(i for s in stamps for i in ((s and s[0]) or (0,)))
+               if trace.recording() else ())
+        with trace.span('batcher.dispatch', scan=ids):
+            self._dispatch_program(key, take)
+
+    def _dispatch_program(self, key, take):
         from .ensemble_engine import _wire_pack
         from .program import ready_event
         engine = self.engine
@@ -388,12 +415,14 @@ class DynamicBatcher:
         B = len(take)
         if B == 1:
             # the solo program: no batched program for the sequential case
-            cropped, mask, bbox, full, fut = take[0]
+            cropped, mask, bbox, full, _, fut = take[0]
             fn, meta = engine._serving_program(cropped.shape[:2], spacing,
                                                wire)
-            out = fn(_wire_pack(cropped, wire), mask)
+            with trace.span('program.wire_pack'):
+                payload = _wire_pack(cropped, wire)
+            out = fn(payload, mask)
             br = _BatchResult(out, compact=meta.get('compact'),
-                              ready=ready_event(out))
+                              ready=ready_event(out), scans=trace.scans())
             self._track(br)
             with self._cv:
                 self._occupancy[0] += 1
@@ -407,17 +436,20 @@ class DynamicBatcher:
             self.max_batch, take[0][0].shape[:2], spacing, has_mask, wire)
         compact = meta.get('compact')
         pad = self.max_batch - B
-        stacked = np.stack([it[0] for it in take] + [take[-1][0]] * pad)
-        mb = (np.stack([it[1] for it in take] + [take[-1][1]] * pad)
-              if has_mask else None)
-        out = fnb(_wire_pack(stacked, wire), mb)
+        with trace.span('program.wire_pack'):
+            stacked = np.stack([it[0] for it in take] + [take[-1][0]] * pad)
+            mb = (np.stack([it[1] for it in take] + [take[-1][1]] * pad)
+                  if has_mask else None)
+            payload = _wire_pack(stacked, wire)
+        out = fnb(payload, mb)
         if B < self.max_batch:
             # drop the padding rows on the device: they are never fetched
             out = (tuple(o[:B] for o in out) if compact is not None
                    else out[:B])
-        br = _BatchResult(out, compact=compact, ready=ready_event(out))
+        br = _BatchResult(out, compact=compact, ready=ready_event(out),
+                          scans=trace.scans())
         self._track(br)
         with self._cv:
             self._occupancy[B - 1] += 1
-        for i, (_, _, bbox, full, fut) in enumerate(take):
+        for i, (_, _, bbox, full, _, fut) in enumerate(take):
             fut.set_result((br, i, bbox, full))

@@ -43,6 +43,7 @@ from ..models.unet import stats_override
 from ..ops.gaussian import gaussian_map
 from ..ops.normalize import normalize_channels
 from ..ops.resample import apply_separable, bspline_prefilter
+from ..utils import trace
 from ..utils.device import exact_numerics
 from .program import _mirror_combos, _wire_restore, compute_new_shape, upload
 from .tiling import accumulate_tiles
@@ -208,13 +209,16 @@ class BucketProgram:
                 tiles[i, :len(g['tiles'])] = g['tiles']
                 valid[i, :len(g['tiles'])] = 1.0
         with torch.inference_mode(), exact_numerics(), stats_override('1pass'):
-            mats = [{k: [upload(m, dev) for m in g[k]] for k in ('down', 'up')}
-                    for g in geos]
-            out = self._device(upload(payload, dev), upload(nz_mask, dev),
-                               geos, mats,
-                               geos[0]['tiles'] if solo else tiles,
-                               upload(valid, dev))
-            return self.engine._pack(out)
+            with trace.span('program.upload'):
+                mats = [{k: [upload(m, dev) for m in g[k]]
+                         for k in ('down', 'up')} for g in geos]
+                x, m, v = (upload(payload, dev), upload(nz_mask, dev),
+                           upload(valid, dev))
+            with trace.span('program.enqueue'):
+                out = self._device(x, m, geos, mats,
+                                   geos[0]['tiles'] if solo else tiles, v)
+                with trace.span('program.pack'):
+                    return self.engine._pack(out)
 
     def _device(self, x, nz_mask, geos, mats, tiles, valid):
         eng, dev = self.engine, self.engine.device

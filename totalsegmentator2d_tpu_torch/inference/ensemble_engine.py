@@ -59,6 +59,7 @@ from ..models.unet import UNet
 from ..ops.normalize import nonzero_norm_mask
 from ..ops.projection import project_array, project_arrays_np
 from ..utils.device import exact_numerics
+from ..utils import trace
 from ..utils.logging import log, warn
 from .bucket import BucketProgram
 from .program import ScanEngine, ready_event, to_host, upload
@@ -87,8 +88,11 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     if Lpad != L:
         bits = F.pad(bits, (0, Lpad - L))
     grouped = bits.reshape(bits.shape[:-1] + (Lpad // 8, 8))
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
-                           device=bits.device)
+    # a host list copied to the card: the copy waits for the work queued
+    # before it, so inside a program the host waits for the card here
+    with trace.span('program.sync'):
+        weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
+                               dtype=torch.uint8, device=bits.device)
     return (grouped * weights).sum(dim=-1, dtype=torch.uint8)
 
 
@@ -244,7 +248,8 @@ def _fetch_speculative(occ, spec_thunk, ready=None):
         return to_host(occ, ready), None
     spec = _fetch_pool('spec', 2).submit(spec_thunk)
     occ_np = to_host(occ, ready)
-    return occ_np, spec.result()
+    with trace.span('engine.device_wait'):
+        return occ_np, spec.result()
 
 
 def fetch_compact(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
@@ -539,8 +544,9 @@ class EnsembleEngine(ScanEngine):
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
-                hit = self._build_bucket(tuple(bucket), tuple(in_spacing),
-                                         wire)
+                with trace.span('program.build'):
+                    hit = self._build_bucket(tuple(bucket), tuple(in_spacing),
+                                             wire)
                 self._cache[key] = hit
                 log(f'prepared bucket serving program for bucket={key[1]} '
                     f'(q={self.pad_quantum}, <= {hit[1]["n_tiles_max"]} '
@@ -589,8 +595,9 @@ class EnsembleEngine(ScanEngine):
                 _, meta = self._serving_program(in_shape, in_spacing, wire)
                 build = (self._build_bucket if self.pad_quantum is not None
                          else self._build)
-                fn, _ = build(tuple(in_shape), tuple(in_spacing), wire,
-                              batch=int(batch))
+                with trace.span('program.build'):
+                    fn, _ = build(tuple(in_shape), tuple(in_spacing), wire,
+                                  batch=int(batch))
                 hit = self._cache[key] = (fn, meta)
                 log(f'prepared batched ensemble program for shape='
                     f'{tuple(in_shape)} batch={batch}'
@@ -605,26 +612,30 @@ class EnsembleEngine(ScanEngine):
         micro-batching the request joins the dispatcher's queue; without,
         the solo program is launched on this thread. Under pad_quantum the
         crop goes flush into its shape bucket with a valid-extent mask."""
-        cropped, mask, bbox = self._crop(arr)
-        if self.pad_quantum is not None:
-            q = self.pad_quantum
-            h, w = cropped.shape[:2]
-            qh, qw = -(-h // q) * q, -(-w // q) * q
-            emb = np.zeros((qh, qw) + cropped.shape[2:], cropped.dtype)
-            emb[:h, :w] = cropped
-            m = np.zeros((qh, qw), bool)
-            m[:h, :w] = mask if mask is not None else True
-            cropped, mask = emb, m
-            bbox = bbox + ((0, 0, h, w),)
+        with trace.span('engine.crop'):
+            cropped, mask, bbox = self._crop(arr)
+            if self.pad_quantum is not None:
+                q = self.pad_quantum
+                h, w = cropped.shape[:2]
+                qh, qw = -(-h // q) * q, -(-w // q) * q
+                emb = np.zeros((qh, qw) + cropped.shape[2:], cropped.dtype)
+                emb[:h, :w] = cropped
+                m = np.zeros((qh, qw), bool)
+                m[:h, :w] = mask if mask is not None else True
+                cropped, mask = emb, m
+                bbox = bbox + ((0, 0, h, w),)
         # exactly-integral channels (CT MIP, integer X-rays) ride the wire
         # as int16: half the upload bytes, bit-identical results
-        wire = wire_detect(cropped)
+        with trace.span('engine.wire'):
+            wire = wire_detect(cropped)
         if self._batcher is not None:
             return ('future',
                     self._batcher.submit(cropped, mask, spacing_yx, bbox,
                                          arr.shape[:2], wire))
         fn, meta = self._serving_program(cropped.shape[:2], spacing_yx, wire)
-        out = fn(_wire_pack(cropped, wire), mask)
+        with trace.span('program.wire_pack'):
+            payload = _wire_pack(cropped, wire)
+        out = fn(payload, mask)
         return (out, bbox, arr.shape[:2], meta.get('compact'),
                 ready_event(out))
 
@@ -632,14 +643,19 @@ class EnsembleEngine(ScanEngine):
         """Wait for a :meth:`predict_array_async` handle; returns the
         full-size merged multilabel one-hot uint8 segmentation."""
         if handle[0] == 'future':
-            batch_result, idx, bbox, full = handle[1].result()
-            packed = batch_result.get()
+            with trace.span('engine.wait'):
+                batch_result, idx, bbox, full = handle[1].result()
+                packed = batch_result.get()
             if idx is not None:
                 packed = packed[idx]
-            return self._place(unpack_bits(packed, self.total_labels),
-                               bbox, full)
-        out, bbox, full, cmeta, ready = handle
-        return self._place(self._fetch_masks(out, cmeta, ready), bbox, full)
+        else:
+            out, bbox, full, cmeta, ready = handle
+            with trace.span('engine.fetch'):
+                packed = self._fetch_packed(out, cmeta, ready)
+        with trace.span('engine.unpack'):
+            seg = unpack_bits(packed, self.total_labels)
+        with trace.span('engine.place'):
+            return self._place(seg, bbox, full)
 
     def _fetch_masks(self, out, cmeta, ready, batch=False) -> np.ndarray:
         """A program's device masks as unpacked host masks."""

@@ -40,6 +40,7 @@ from ..models.unet import UNet, stats_override
 from ..ops.gaussian import gaussian_map
 from ..ops.normalize import nonzero_norm_mask, normalize_channels
 from ..ops.resample import apply_separable, axis_weights, bspline_prefilter
+from ..utils import trace
 from ..utils.device import exact_numerics, hold_exact_numerics, resolve_device
 from ..utils.logging import log
 from .tiling import (accumulate_tiles, accumulate_tiles_sharded, pad_amounts,
@@ -151,7 +152,8 @@ def to_host(dev, ready=None, stream_index: int = 0) -> np.ndarray:
     with torch.cuda.stream(stream):
         host.copy_(dev, non_blocking=True)
         dev.record_stream(stream)
-    stream.synchronize()
+    with trace.span('engine.device_wait'):
+        stream.synchronize()
     return host.numpy()
 
 
@@ -292,38 +294,46 @@ class ScanEngine:
         def device_program(x: torch.Tensor,
                            nz_mask: Optional[torch.Tensor]) -> torch.Tensor:
             # x: the wire payload, (*lead, H, W, C) on the device
-            x = _wire_restore(x, wire)
-            if batch is None:
-                work = normalize_channels(x, pre, nz_mask)
-            else:  # statistics per scan
-                work = torch.stack([normalize_channels(
-                    x[i], pre, None if nz_mask is None else nz_mask[i])
-                    for i in range(batch)])
-            if force_norm_mask and nz_mask is not None:
-                work = torch.where(nz_mask[..., None], work, 0.0)
-            if down_axes:
-                work = bspline_prefilter(work, [a0 + k for k in down_axes])
-                work = apply_separable(work, w_down, axes=(a0, a0 + 1))
-            work = F.pad(work.movedim(-1, -3),
-                         (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
-            acc = torch.zeros(self.acc_prefix[:-1] + lead
-                              + self.acc_prefix[-1:] + pad_shape, device=dev)
-            wacc = torch.zeros((1,) + pad_shape, device=dev)
-            tile_kw = dict(patch=patch, mirrors=mirrors, gauss=gauss,
-                           chunk_cap=self.forward_batch_cap)
-            if batch is None and self.tile_mesh is not None:
-                accumulate_tiles_sharded(work, tiles, self._net, acc, wacc,
-                                         self.tile_mesh, self.tile_axis,
-                                         **tile_kw)
-            else:
-                accumulate_tiles(work, tiles, self._net, acc, wacc, **tile_kw)
-            logits = acc / torch.clamp(wacc, min=1e-8)
-            logits = logits[..., pads[0][0]:pads[0][0] + rs_shape[0],
-                            pads[1][0]:pads[1][0] + rs_shape[1]]
-            logits = apply_separable(logits, w_up, axes=(-2, -1))
-            if with_logits:
-                return self._decide(logits), logits.movedim(-3, -1)
-            return self._decide(logits)
+            with trace.span('program.normalize'):
+                x = _wire_restore(x, wire)
+                if batch is None:
+                    work = normalize_channels(x, pre, nz_mask)
+                else:  # statistics per scan
+                    work = torch.stack([normalize_channels(
+                        x[i], pre, None if nz_mask is None else nz_mask[i])
+                        for i in range(batch)])
+                if force_norm_mask and nz_mask is not None:
+                    work = torch.where(nz_mask[..., None], work, 0.0)
+            with trace.span('program.resample'):
+                if down_axes:
+                    work = bspline_prefilter(work, [a0 + k for k in down_axes])
+                    work = apply_separable(work, w_down, axes=(a0, a0 + 1))
+                work = F.pad(work.movedim(-1, -3),
+                             (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+            with trace.span('program.tiles'):
+                acc = torch.zeros(self.acc_prefix[:-1] + lead
+                                  + self.acc_prefix[-1:] + pad_shape,
+                                  device=dev)
+                wacc = torch.zeros((1,) + pad_shape, device=dev)
+                tile_kw = dict(patch=patch, mirrors=mirrors, gauss=gauss,
+                               chunk_cap=self.forward_batch_cap)
+                if batch is None and self.tile_mesh is not None:
+                    accumulate_tiles_sharded(work, tiles, self._net, acc,
+                                             wacc, self.tile_mesh,
+                                             self.tile_axis, **tile_kw)
+                else:
+                    accumulate_tiles(work, tiles, self._net, acc, wacc,
+                                     **tile_kw)
+            with trace.span('program.merge'):
+                logits = acc / torch.clamp(wacc, min=1e-8)
+                logits = logits[..., pads[0][0]:pads[0][0] + rs_shape[0],
+                                pads[1][0]:pads[1][0] + rs_shape[1]]
+            with trace.span('program.upsample'):
+                logits = apply_separable(logits, w_up, axes=(-2, -1))
+            with trace.span('program.decide'):
+                if with_logits:
+                    return self._decide(logits), logits.movedim(-3, -1)
+                return self._decide(logits)
 
         def program(payload, nz_mask: Optional[np.ndarray] = None):
             """Host payload (and mask) in, the device result out, without
@@ -332,10 +342,14 @@ class ScanEngine:
             stats = (stats_override('1pass') if batch is not None
                      else contextlib.nullcontext())
             with torch.inference_mode(), exact_numerics(), stats:
-                out = device_program(upload(payload, dev), upload(nz_mask, dev))
-                if with_logits:
-                    return self._pack(out[0]), out[1]
-                return self._pack(out)
+                with trace.span('program.upload'):
+                    x, m = upload(payload, dev), upload(nz_mask, dev)
+                with trace.span('program.enqueue'):
+                    out = device_program(x, m)
+                    with trace.span('program.pack'):
+                        if with_logits:
+                            return self._pack(out[0]), out[1]
+                        return self._pack(out)
 
         meta = {'rs_shape': rs_shape, 'n_tiles': len(tiles),
                 'n_mirror': len(mirrors),
@@ -354,8 +368,9 @@ class ScanEngine:
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
-                hit = self._build(tuple(in_shape), tuple(in_spacing), wire,
-                                  with_logits=logits)
+                with trace.span('program.build'):
+                    hit = self._build(tuple(in_shape), tuple(in_spacing),
+                                      wire, with_logits=logits)
                 self._cache[key] = hit
                 log(f'prepared {self.kind} program for shape={key[0]} '
                     f'({hit[1]["n_tiles"]} tiles, {hit[1]["n_mirror"]} '
