@@ -5,10 +5,14 @@ corrupt input, concatenated gzip members, the Python fallback, streams
 driven through many zlib windows (a build with a 4 KiB window stands in for
 payloads of 4 GiB and more), and the fused MAX + MEAN projection: its mean
 bit for bit the port's float64 numpy mean and its device projection, within
-one float32 ulp of the reference package's."""
+one float32 ulp of the reference package's, on any number of threads, and
+the threads each call takes."""
 
+import ctypes
 import gzip
 import os
+import sys
+import threading
 import zlib
 
 import numpy as np
@@ -47,7 +51,8 @@ def test_library_is_built_in_the_package(lib):
     assert build.BUILD_DIR.startswith(PORT + os.sep)
     assert os.path.basename(path).startswith('libts2dio-')
     assert '_native' not in path
-    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION
+    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION == 3
+    assert lib.ts2dio_project_max_mean_i16_mt.argtypes[-1] is ctypes.c_longlong
     # sources() still lists the CUDA kernels only
     assert build.sources() == ['fused_block', 'prefilter']
 
@@ -189,11 +194,28 @@ def test_mean_divides(lib, ny):
     np.testing.assert_array_equal(mx, vol.max(axis=1).astype(np.float32))
 
 
+def _serial(lib, vol):
+    """The one-thread entry point (ABI 2's)."""
+    nz, ny, nx = vol.shape
+    mx, mn = np.empty((nz, nx), np.float32), np.empty((nz, nx), np.float32)
+    assert lib.ts2dio_project_max_mean_i16(vol.ctypes.data, nz, ny, nx,
+                                           mx.ctypes.data,
+                                           mn.ctypes.data) == nz * nx
+    return mx, mn
+
+
+@pytest.mark.parametrize('threads', [1, 2, 3, 7, 64])
 @pytest.mark.parametrize('shape', [(40, 30, 50), (5, 1, 7), (3, 64, 1)])
-def test_project_max_mean_matches_numpy_and_device(lib, shape):
+def test_project_max_mean_matches_numpy_and_device(lib, shape, threads):
+    """On any number of z slabs (40 slices into 3 and 7, more threads than
+    slices): bit for bit the one-thread call, numpy and the device."""
     rng = np.random.default_rng(sum(shape))
     vol = np.clip(rng.normal(40, 900, shape), -32768, 32767).astype(np.int16)
-    mx, mn = native.project_max_mean(vol)
+    mx, mn = native._project_native(lib, vol, threads)
+    for a, b in zip((mx, mn), _serial(lib, vol)):
+        assert a.tobytes() == b.tobytes()
+    for a, b in zip((mx, mn), native.project_max_mean(vol)):
+        assert a.tobytes() == b.tobytes()
     np.testing.assert_array_equal(mx, vol.max(axis=1).astype(np.float32))
     np.testing.assert_array_equal(
         mn, vol.mean(axis=1, dtype=np.float64).astype(np.float32))
@@ -202,6 +224,120 @@ def test_project_max_mean_matches_numpy_and_device(lib, shape):
                                   .squeeze(1).numpy())
     np.testing.assert_array_equal(mx, projection.project_array(t, 'max', 1)
                                   .squeeze(1).float().numpy())
+
+
+@pytest.mark.parametrize('ny', [65535, 65537])
+def test_project_tall_full_scale_columns(lib, ny):
+    """Columns of 32767 and -32768 at the int32 sums' limit (ny 65535) and
+    past it (65537: -32768 x 65537 < -2^31, the int64 sums): exact, numpy's
+    mean and max on one thread and on two."""
+    cols = np.array([32767, -32768, -32768, 32767], np.int16)
+    vol = np.empty((2, ny, 3), np.int16)
+    vol[0] = cols[:3]
+    vol[1] = cols[1:]
+    vol[1, ny // 2, 0] = 0
+    sums = vol.astype(np.int64).sum(axis=1)
+    assert (sums.min() < -2 ** 31) == (ny > 65535)
+    want_mx = vol.max(axis=1).astype(np.float32)
+    want_mn = vol.mean(axis=1, dtype=np.float64).astype(np.float32)
+    for threads in (1, 2):
+        mx, mn = native._project_native(lib, vol, threads)
+        np.testing.assert_array_equal(mx, want_mx)
+        np.testing.assert_array_equal(mn, want_mn)
+    np.testing.assert_array_equal(mn[0], np.float32([32767, -32768, -32768]))
+
+
+def test_projection_threads(monkeypatch):
+    """The threads a projection takes: one for a small volume and inside a
+    file-level decode worker, never more than the usable cores (nor
+    PROJECT_MAX_THREADS, nor its slices), and the cores shared between
+    projections that run at once."""
+    slab = native.PROJECT_SLAB_VOXELS
+    big = 400 * 512 * 512
+    pool = native._Projections()
+    monkeypatch.setattr(native, 'usable_cores', lambda: 8)
+    with pool.share(slab - 1, 400) as n:
+        assert n == 1
+    with pool.share(3 * slab, 400) as n:
+        assert n == 3
+    with pool.share(big, 5) as n:
+        assert n == 5
+    got = []
+
+    def in_worker():
+        native.decode_worker_local.in_file_worker = True
+        try:
+            with pool.share(big, 400) as n:
+                got.append(n)
+        finally:
+            native.decode_worker_local.in_file_worker = False
+    t = threading.Thread(target=in_worker)
+    t.start()
+    t.join(10)
+    assert not t.is_alive() and got == [1]
+    for cores in (1, 2, 3, 64):
+        monkeypatch.setattr(native, 'usable_cores', lambda: cores)
+        with pool.share(big, 400) as n:
+            assert n == min(cores, native.PROJECT_MAX_THREADS)
+    monkeypatch.setattr(native, 'usable_cores', lambda: 8)
+    with pool.share(4 * slab, 400) as a:
+        with pool.share(big, 400) as b:
+            with pool.share(big, 400) as c:
+                assert (a, b, c) == (4, 4, 1)
+        with pool.share(big, 400) as d:
+            assert d == 4
+    with pool.share(big, 400) as n:
+        assert n == 8
+
+
+def test_projection_counts_a_threaded_call(lib, monkeypatch):
+    monkeypatch.setattr(native, 'usable_cores', lambda: 4)
+    vol = np.random.default_rng(8).integers(
+        -1024, 3000, (64, 128, 256)).astype(np.int16)
+    before = native.projection_counts()
+    mx, mn = native.project_max_mean(vol)
+    after = native.projection_counts()
+    assert after['threaded'] - before['threaded'] == 1
+    assert after['threads'] - before['threads'] == 4
+    assert after['serial'] == before['serial']
+    assert after['numpy'] == before['numpy']
+    for a, b in zip((mx, mn), _serial(lib, vol)):
+        assert a.tobytes() == b.tobytes()
+    native.project_max_mean(vol.astype(np.float32))
+    assert native.projection_counts()['numpy'] - after['numpy'] == 1
+
+
+def test_concurrent_projections(lib):
+    """More callers than cores, switching often: every result exact, every
+    call counted, and no thread left held."""
+    vol = np.random.default_rng(10).integers(
+        -1024, 3000, (32, 128, 256)).astype(np.int16)
+    want = _serial(lib, vol)
+    callers, calls = 2 * native.usable_cores() + 2, 6
+    before = native.projection_counts()
+    bad = []
+
+    def run():
+        for _ in range(calls):
+            got = native.project_max_mean(vol)
+            if any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                bad.append(1)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run) for _ in range(callers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    after = native.projection_counts()
+    assert sum(after[k] - before[k] for k in ('threaded', 'serial')) == \
+        callers * calls
+    assert native._projections._running == native._projections._held == 0
 
 
 def test_project_against_reference(lib):

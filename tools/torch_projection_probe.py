@@ -1,0 +1,122 @@
+"""The host's MAX + MEAN projection per checkout, each in a process of its
+own, and the projection's paths over one benchmark run:
+
+    python tools/torch_projection_probe.py ROOT [ROOT ...]
+    python tools/torch_projection_probe.py --cell CELL --seed N [--trace 1]
+
+Each ROOT is a checkout of the repository whose
+``totalsegmentator2d_tpu_torch`` is measured: ``io.native.project_max_mean``
+on a (400, 512, 512) int16 volume from a fixed seed (the benchmark's
+400-slice CT size), 15 calls after 3 warm-ups: the median and the runs in
+ms, and a sha256 of the outputs, equal across checkouts whose passes agree
+bit for bit. A checkout with the threaded pass is also timed at 1, 2, 4 and
+8 threads, each run's outputs checked against the one-thread call's. The
+first line is the host: its usable cores and CPU model. Give the parent and
+the change as ``parent change change parent`` to compare them on one host.
+
+``--cell`` runs one benchmark run of this checkout in this process
+(``benchmark/harness.py``, 45 s window) and then prints
+``projection_counts()``, the calls each path took in the whole run, and
+the micro-batcher's ``stats()`` as the run closed ``TS2D`` (its
+``batch_solo_reasons`` say why scans went alone).
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+MEASURE = r'''
+import hashlib, json, statistics, time
+import numpy as np
+from totalsegmentator2d_tpu_torch.io import native
+
+vol = np.random.default_rng(19).integers(-1024, 3071, (400, 512, 512),
+                                         dtype=np.int16)
+
+
+def timed(fn, n=15, warm=3):
+    for _ in range(warm):
+        out = fn()
+    runs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return out, runs
+
+
+out, runs = timed(lambda: native.project_max_mean(vol))
+digest = hashlib.sha256(out[0].tobytes() + out[1].tobytes()).hexdigest()
+line = {'root': ROOT, 'project_max_mean_ms': statistics.median(runs),
+        'runs_ms': [round(r, 3) for r in runs], 'sha256': digest[:16]}
+if hasattr(native, '_project_native'):
+    lib = native._load()
+    by = {}
+    for threads in (1, 2, 4, 8):
+        got, runs = timed(lambda: native._project_native(lib, vol, threads))
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(got, out))
+        by[threads] = round(statistics.median(runs), 3)
+    line['threads_ms'] = by
+    line['usable_cores'] = native.usable_cores()
+    line['projection_counts'] = native.projection_counts()
+print(json.dumps(line), flush=True)
+'''
+
+
+def host() -> str:
+    model = ''
+    try:
+        with open('/proc/cpuinfo') as f:
+            model = next((ln.split(':', 1)[1].strip() for ln in f
+                          if ln.startswith('model name')), '')
+    except OSError:
+        pass
+    return (f'host: {len(os.sched_getaffinity(0))} usable cores of '
+            f'{os.cpu_count()}, {model}')
+
+
+def cell(argv) -> int:
+    """One benchmark run of this checkout, then the projection's paths."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from benchmark import harness
+    args = ['--workload', argv[argv.index('--cell') + 1],
+            '--seed', argv[argv.index('--seed') + 1], '--seconds', '45',
+            '--trace', argv[argv.index('--trace') + 1]
+            if '--trace' in argv else '0']
+    from totalsegmentator2d_tpu_torch import api
+    from totalsegmentator2d_tpu_torch.io import native
+    stats = {}
+    close = api.TS2D.close
+
+    def closing(tool):
+        batcher = getattr(tool._fused, '_batcher', None)
+        if batcher is not None:
+            stats.update(batcher.stats())
+        close(tool)
+    api.TS2D.close = closing
+    rc = harness.main(args, t0, root)
+    print('projection_counts', native.projection_counts(), flush=True)
+    print('batcher', {k: stats.get(k) for k in (
+        'batch_solo_reasons', 'batch_occupancy')}, flush=True)
+    return rc
+
+
+def main(argv) -> int:
+    if '--cell' in argv:
+        return cell(argv)
+    print(host(), flush=True)
+    rc = 0
+    for root in argv:
+        root = os.path.abspath(root)
+        code = f'ROOT = {root!r}\n' + MEASURE
+        proc = subprocess.run([sys.executable, '-c', code], cwd=root,
+                              env={**os.environ, 'PYTHONPATH': root})
+        rc = rc or proc.returncode
+    return rc
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))

@@ -12,7 +12,7 @@
 // package). Built with the host C++ compiler at first use by
 // ops/cuda/build.py:
 //
-//   g++ -O3 -fPIC -std=c++17 -shared -ffp-contract=off ts2dio.cc -lz
+//   g++ -O3 -fPIC -std=c++17 -shared -ffp-contract=off -pthread ts2dio.cc -lz
 //
 // -ffp-contract=off is load-bearing: the 9/7 inverse DWT's doubles must
 // round exactly like numpy's elementwise operations (no FMA contraction),
@@ -41,6 +41,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <system_error>
+#include <thread>
 #include <vector>
 #include <zlib.h>
 
@@ -80,14 +82,61 @@ size_t unread(const z_stream& zs, const Feed& in) {
   return (in.len - in.given) + zs.avail_in;
 }
 
+// The projection of z slices [z0, z1) into their rows of out_max and
+// out_mean. int16 maxima and column sums vectorize; the sums are exact in
+// Acc: int32 while ny * 32768 < 2^31 (ny <= 65535), int64 beyond. The mean
+// is the sum divided by ny in double, rounded once to float32.
+template <typename Acc>
+void project_slab_as(const int16_t* vol, long long z0, long long z1,
+                     long long ny, long long nx, float* out_max,
+                     float* out_mean) {
+  std::vector<int16_t> mx(static_cast<size_t>(nx));
+  std::vector<Acc> sum(static_cast<size_t>(nx));
+  const double n = static_cast<double>(ny);
+  for (long long z = z0; z < z1; ++z) {
+    const int16_t* first = vol + (z * ny) * nx;
+    for (long long x = 0; x < nx; ++x) {
+      mx[x] = first[x];
+      sum[x] = first[x];
+    }
+    for (long long y = 1; y < ny; ++y) {
+      const int16_t* row = vol + (z * ny + y) * nx;
+      int16_t* __restrict m = mx.data();
+      Acc* __restrict a = sum.data();
+      for (long long x = 0; x < nx; ++x) {
+        int16_t v = row[x];
+        m[x] = v > m[x] ? v : m[x];  // branchless: a SIMD max
+        a[x] += v;
+      }
+    }
+    float* om = out_max + z * nx;
+    float* oe = out_mean + z * nx;
+    for (long long x = 0; x < nx; ++x) {
+      om[x] = static_cast<float>(mx[x]);
+      // divide, as numpy and the device projection do (see the top)
+      oe[x] = static_cast<float>(static_cast<double>(sum[x]) / n);
+    }
+  }
+}
+
+void project_slab(const int16_t* vol, long long z0, long long z1,
+                  long long ny, long long nx, float* out_max,
+                  float* out_mean) {
+  if (ny <= 65535)  // |sum| <= 65535 * 32768 < 2^31
+    project_slab_as<int32_t>(vol, z0, z1, ny, nx, out_max, out_mean);
+  else
+    project_slab_as<long long>(vol, z0, z1, ny, nx, out_max, out_mean);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Behavioural version of this library's entry points; io/native.py uses
 // the library only at the version it was written for (2: the codec entry
-// points, whose truncated-entropy streams return -4).
-long long ts2dio_abi_version(void) { return 2; }
+// points, whose truncated-entropy streams return -4; 3: the projection
+// threaded over z slabs, ts2dio_project_max_mean_i16_mt).
+long long ts2dio_abi_version(void) { return 3; }
 
 // An upper bound for the inflated size of a gzip or zlib stream. A single
 // gzip member's ISIZE trailer (the size mod 2^32) is trusted when it is
@@ -212,41 +261,44 @@ long long ts2dio_deflate_zlib(const char* src, size_t src_len,
 }
 
 // The fused coronal projection: a (Z, Y, X) C-order int16 volume to the
-// per-(z, x) MAX and MEAN along Y, in one pass. int16 maxima and int64 sums
-// vectorize, and the int64 sum is exact (|sum| <= ny * 32768); the mean is
-// that sum divided by ny in double, rounded once to float32.
+// per-(z, x) MAX and MEAN along Y, in one pass over ``threads`` contiguous
+// z slabs, one per thread (the calling thread takes the first; at most one
+// slab a slice). Each thread owns its accumulators and writes its own
+// output rows, with no reduction across threads, so the result is bit for
+// bit the same for every thread count. A thread the system refuses to
+// start leaves its slab to the calling thread.
+long long ts2dio_project_max_mean_i16_mt(const int16_t* vol, long long nz,
+                                         long long ny, long long nx,
+                                         float* out_max, float* out_mean,
+                                         long long threads) {
+  if (nz <= 0 || ny <= 0 || nx <= 0 || threads <= 0) return -1;
+  threads = std::min(threads, nz);
+  const long long per = nz / threads, rem = nz % threads;
+  auto slab = [&](long long i) {
+    const long long z0 = i * per + std::min(i, rem);
+    const long long z1 = z0 + per + (i < rem ? 1 : 0);
+    project_slab(vol, z0, z1, ny, nx, out_max, out_mean);
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(static_cast<size_t>(threads - 1));
+  for (long long i = 1; i < threads; ++i) {
+    try {
+      pool.emplace_back(slab, i);
+    } catch (const std::system_error&) {
+      slab(i);
+    }
+  }
+  slab(0);
+  for (std::thread& t : pool) t.join();
+  return nz * nx;
+}
+
+// The same pass on the calling thread alone: the entry point of ABI 2.
 long long ts2dio_project_max_mean_i16(const int16_t* vol, long long nz,
                                       long long ny, long long nx,
                                       float* out_max, float* out_mean) {
-  if (nz <= 0 || ny <= 0 || nx <= 0) return -1;
-  std::vector<int16_t> mx(static_cast<size_t>(nx));
-  std::vector<long long> sum(static_cast<size_t>(nx));
-  const double n = static_cast<double>(ny);
-  for (long long z = 0; z < nz; ++z) {
-    const int16_t* first = vol + (z * ny) * nx;
-    for (long long x = 0; x < nx; ++x) {
-      mx[x] = first[x];
-      sum[x] = first[x];
-    }
-    for (long long y = 1; y < ny; ++y) {
-      const int16_t* row = vol + (z * ny + y) * nx;
-      int16_t* __restrict m = mx.data();
-      long long* __restrict a = sum.data();
-      for (long long x = 0; x < nx; ++x) {
-        int16_t v = row[x];
-        m[x] = v > m[x] ? v : m[x];  // branchless: a SIMD max
-        a[x] += v;
-      }
-    }
-    float* om = out_max + z * nx;
-    float* oe = out_mean + z * nx;
-    for (long long x = 0; x < nx; ++x) {
-      om[x] = static_cast<float>(mx[x]);
-      // divide, as numpy and the device projection do (see the top)
-      oe[x] = static_cast<float>(static_cast<double>(sum[x]) / n);
-    }
-  }
-  return nz * nx;
+  return ts2dio_project_max_mean_i16_mt(vol, nz, ny, nx, out_max, out_mean,
+                                        1);
 }
 
 // ---------------------------------------------------------------------------

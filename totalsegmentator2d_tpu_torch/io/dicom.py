@@ -810,9 +810,10 @@ def read_dicom_series(path: str) -> MedicalImage:
     # Slice files decode independently, and the codec hot loops (zlib,
     # jpegll/jpegdct/jpegls/jpeg2k in csrc) run outside the GIL through
     # ctypes — a shared thread pool scales compressed-series ingest with
-    # cores. (Unlike the host projections, which are memory-bandwidth-
-    # bound and stay serial, codec decode is compute-bound.) Serial below
-    # 4 files or on single-core hosts.
+    # cores. Codec decode is compute-bound per thread, as the host
+    # projection is, which threads over z slabs for the same reason
+    # (io/native.project_max_mean). Serial below 4 files or on single-core
+    # hosts.
     if (os.cpu_count() or 1) > 1 and len(files) >= 4:
         parsed = list(_series_decode_pool().map(_pooled_read, files))
     else:

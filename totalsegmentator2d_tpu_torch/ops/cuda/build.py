@@ -31,8 +31,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
 # the host libraries: -ffp-contract=off keeps every float operation rounded
-# on its own, as numpy and the device code round them
-CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-shared', '-ffp-contract=off')
+# on its own, as numpy and the device code round them; -pthread for the
+# projection's threads
+CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-shared', '-ffp-contract=off',
+             '-pthread')
 CXX_LIBS = ('-lz',)
 
 _lock = threading.Lock()

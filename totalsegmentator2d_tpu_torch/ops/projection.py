@@ -6,8 +6,8 @@ median / std / depth / multiclass / slice[:pos] ('xr' is rejected).
 The mean of an integer volume is exact on both: a 64-bit integer sum
 divided in float64, then rounded to float32, so the device projection of
 an int16 CT equals the host one bit for bit. On the host, the MAX and MEAN
-of an int16 (Z, Y, X) volume along Y run in one native pass
-(io/native.project_max_mean, the same values as numpy's).
+of an int16 (Z, Y, X) volume along Y run in one native pass, threaded over
+z slabs (io/native.project_max_mean, the same values as numpy's).
 
 Geometry: the projected axis keeps size 1 and absorbs the full physical
 extent (out_spacing[axis] = in_spacing[axis] * in_size[axis]), as ITK's
