@@ -41,7 +41,7 @@ def main(argv, root: str, device=None) -> int:
     device = torch.device(device or 'cuda')
     tool, db = harness.open_tool(cell, root, device)
     groups = database.load_nets(db, cell.config, device)
-    sp = cell.traffic['spacing_xyz']
+    sp = manifest.spacing(cell.traffic)
     quant = CONTROL[cell.config['precision']]
     try:
         for k in range(args.seeds):

@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: each sampled mask the window
-produced against the plain reference's logits for the same volume.
+produced against the plain reference's logits for the same image (a CT
+volume, whose coronal projection the models read, or a native 2D
+radiograph).
 
 A voxel of a label flips where the program's mask and the reference's
 decision (logit > 0, i.e. sigmoid > 0.5) differ. Two numbers are compared,
@@ -31,12 +33,12 @@ INFINITE = 1e300
 
 
 def scan_gaps(mask: np.ndarray, logits: torch.Tensor) -> Dict[str, float]:
-    """One scan: the program's (H, W, L) 0/1 mask against the reference's
-    (H, W, L) logits. Returns worst, flips, voxels and the reference's
-    foreground share."""
+    """One scan's masks against the reference: the program's (H, W, L) 0/1
+    mask against the reference's (H, W, L) logits. Returns worst, flips,
+    voxels and the reference's foreground voxels."""
     voxels = int(np.prod(logits.shape))
     decision = logits > 0
-    fg = float(decision.float().mean())
+    fg = int(decision.sum())
     if tuple(mask.shape) != tuple(logits.shape):
         return {'worst': math.inf, 'flips': voxels, 'voxels': voxels, 'fg': fg}
     flipped = torch.from_numpy(np.ascontiguousarray(mask)).to(
@@ -46,31 +48,42 @@ def scan_gaps(mask: np.ndarray, logits: torch.Tensor) -> Dict[str, float]:
     return {'worst': worst, 'flips': flips, 'voxels': voxels, 'fg': fg}
 
 
-def compare(sample: Dict[int, np.ndarray], volumes: list, spacing_xyz,
+def compare(sample: Dict[int, np.ndarray], images: list, spacing,
             config: dict, groups, quant: Optional[str] = None) -> dict:
-    """Every sampled mask against the reference; with ``quant`` the
-    reference at that precision stands in the program's place (the
-    control). Returns the numbers compared and the reference's foreground
-    share."""
-    spacing_yx = (spacing_xyz[2], spacing_xyz[0])
+    """Every sampled mask against the reference, one group's labels at a
+    time; with ``quant`` the reference at that precision stands in the
+    program's place (the control). ``spacing``: the mix's, in ITK order (a
+    CT's x, y, z; a radiograph's x, y). Returns the numbers compared and
+    the reference's foreground share."""
     worst, flips, voxels, fg = 0.0, 0, 0, []
     kw = dict(patch=tuple(config['patch_size']),
               plan_spacing=tuple(config['spacing']),
               step=config['tile_step_size'],
               mirror_axes=tuple(config['mirror_axes']))
+    labels = sum(config['groups'].values())
     for v, seg in sorted(sample.items()):
-        arr = reference.project(volumes[v])
-        ref = reference.logits(arr, spacing_yx, groups, **kw)
+        arr, spacing_yx = reference.model_input(images[v], spacing)
         if quant is not None:
-            seg = (reference.logits(arr, spacing_yx, groups, quant=quant, **kw)
-                   > 0).to(torch.uint8).cpu().numpy()[:, None]
+            seg = np.concatenate([
+                (lg > 0).to(torch.uint8).cpu().numpy() for lg in
+                reference.group_logits(arr, spacing_yx, groups, quant=quant,
+                                       **kw)], axis=-1)
         mask = seg[:, 0] if seg.ndim == 4 else seg
-        g = scan_gaps(mask, ref)
-        worst = max(worst, g['worst'])
-        flips += g['flips']
-        voxels += g['voxels']
-        fg.append(g['fg'])
-        del ref
+        whole = tuple(mask.shape) == arr.shape[:2] + (labels,)
+        at, scan_voxels, scan_fg = 0, 0, 0
+        for ref in reference.group_logits(arr, spacing_yx, groups, **kw):
+            n = ref.shape[-1]
+            # a mask of the wrong shape flips every voxel of every group
+            g = scan_gaps(mask[..., at:at + n] if whole else mask[..., :0],
+                          ref)
+            worst = max(worst, g['worst'])
+            flips += g['flips']
+            scan_voxels += g['voxels']
+            scan_fg += g['fg']
+            at += n
+            del ref
+        voxels += scan_voxels
+        fg.append(scan_fg / scan_voxels)
     return {'worst_flip_logit': worst,
             'flip_share': flips / voxels if voxels else math.inf,
             'scans_compared': len(sample),

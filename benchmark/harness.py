@@ -19,11 +19,12 @@ import json
 import os
 import sys
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import check, database, manifest, phantom, profiling, traffic
+from . import (check, database, manifest, phantom, profiling, reference,
+               traffic)
 
 # top-level module names the process may not hold once the window closes:
 # the JAX stack and the JAX package the port was made from
@@ -36,7 +37,8 @@ CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 class Run:
     """What a per-layer metric's reader reads."""
     cell: manifest.Cell
-    tiles: List[int]                     # tiles of each volume's scan
+    extents: List[Tuple[int, int]]       # each image's model input, cropped
+    tiles: List[int]                     # tiles of each image's scan
     window_s: float = 0.0
     scans: int = 0
     dispatch_s: List[float] = field(default_factory=list)
@@ -66,10 +68,11 @@ def fail(msg: str) -> int:
 
 
 def images(cell: manifest.Cell, seed: int, device) -> tuple:
-    """The mix's volumes from the seed: (host int16 arrays, MedicalImages)."""
+    """The mix's images from the seed, CT volumes or native 2D radiographs:
+    (host int16 arrays, MedicalImages)."""
     from totalsegmentator2d_tpu_torch.io import MedicalImage
     vols = phantom.volumes(cell.traffic['volumes'], seed, device)
-    sp = tuple(cell.traffic['spacing_xyz'])
+    sp = tuple(manifest.spacing(cell.traffic))
     return vols, [MedicalImage(array=v, spacing=sp) for v in vols]
 
 
@@ -129,7 +132,7 @@ def main(argv, t0: float, root: str, device=None) -> int:
     args = parse(argv)
     try:
         cell = manifest.cell(root, args.workload)
-    except (KeyError, OSError) as ex:
+    except (KeyError, OSError, ValueError) as ex:
         return fail(f'cannot resolve the workload: {ex}')
     if device is None:
         if not torch.cuda.is_available():
@@ -163,7 +166,9 @@ def main(argv, t0: float, root: str, device=None) -> int:
     before = batcher.stats()['batch_occupancy'] if batcher else []
     setup_s = traffic.now() - t0
     window_s = loop.window(args.seconds, drain=not args.trace)
-    run = Run(cell=cell, tiles=[tiles(cell, img) for img in imgs],
+    extents_ = [extent(img.array) for img in imgs]
+    run = Run(cell=cell, extents=extents_,
+              tiles=[tiles(cell, e) for e in extents_],
               window_s=window_s, scans=loop.finished(),
               dispatch_s=list(loop.dispatch_s))
     if batcher:
@@ -188,7 +193,7 @@ def main(argv, t0: float, root: str, device=None) -> int:
     if device.type == 'cuda':
         torch.cuda.empty_cache()
     groups = database.load_nets(db, config, device)
-    numbers = check.compare(sample.kept, vols, traffic_['spacing_xyz'],
+    numbers = check.compare(sample.kept, vols, manifest.spacing(traffic_),
                             config, groups)
     checks = check.verdict(numbers, cell.limits, failed, len(imgs))
     correct = check.passes(checks)
@@ -225,15 +230,24 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def tiles(cell: manifest.Cell, img) -> int:
-    """Sliding-window tiles of one volume's scan (its coronal projection is
-    (z, x) at the z and x spacing)."""
-    from .reference import tile_count
-    z, _, x = img.array.shape
-    sp = cell.traffic['spacing_xyz']
+def extent(image) -> Tuple[int, int]:
+    """(rows, cols) of the model input of one image, cropped to non-zero as
+    the program crops it: a CT volume's coronal projection (z, x), whole,
+    since air projects to -1024; a radiograph inside its collimation
+    border."""
+    if image.ndim == 3:
+        return image.shape[0], image.shape[2]
+    (y0, y1), (x0, x1) = reference.nonzero_bbox(image[..., None])
+    return y1 - y0, x1 - x0
+
+
+def tiles(cell: manifest.Cell, extent_hw: Tuple[int, int]) -> int:
+    """Sliding-window tiles of one scan whose model input keeps
+    ``extent_hw`` after the crop."""
     c = cell.config
-    return tile_count((z, x), (sp[2], sp[0]), tuple(c['patch_size']),
-                      tuple(c['spacing']), c['tile_step_size'])
+    return reference.tile_count(
+        extent_hw, reference.spacing_yx(manifest.spacing(cell.traffic)),
+        tuple(c['patch_size']), tuple(c['spacing']), c['tile_step_size'])
 
 
 def end_to_end(cell: manifest.Cell, setup_s: float, window_s: float,

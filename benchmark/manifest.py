@@ -7,6 +7,17 @@ read by ``benchmark/metrics/<metric>.py``. Which metrics apply comes from
 ``BENCHMARK.json`` alone: a metric without a ``workloads`` key applies to
 every cell. So a configuration, mix, cell or metric is added as files and
 entries, and no file that is there changes.
+
+A mix is of one of two kinds, by the rank of its ``volumes`` entries:
+
+- 3D CT volumes, ``[z, y, x]`` at ``spacing_xyz`` (mm, ITK order): int16
+  torso phantoms (phantom.torso_ct), sent as volumes; the program and the
+  reference read their coronal MIP + AIP;
+- native 2D images, ``[rows, cols]`` at ``spacing_xy`` (mm, columns
+  first): int16 chest radiographs (phantom.chest_xr), sent as 2D images;
+  the program and the reference read each as its own single channel.
+
+Both are compared with the reference alike (check.py).
 """
 
 from __future__ import annotations
@@ -15,7 +26,7 @@ import importlib.util
 import json
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence
 
 
 @dataclass
@@ -47,9 +58,34 @@ def applies(metric: dict, cell: str) -> bool:
     return 'workloads' not in metric or cell in metric['workloads']
 
 
+# a mix's spacing key by the rank of its entries
+SPACING = {2: 'spacing_xy', 3: 'spacing_xyz'}
+
+
+def spacing(mix: dict) -> Sequence[float]:
+    """The mix's spacing in ITK order: a CT mix's (x, y, z), a 2D mix's
+    (x, y)."""
+    return mix[SPACING[len(mix['volumes'][0])]]
+
+
+def check_mix(name: str, mix: dict) -> None:
+    """Raises ValueError, naming the key, for a mix whose ``volumes`` are
+    not all 3D or all 2D, or that lacks the spacing of its kind."""
+    ranks = sorted({len(v) for v in mix.get('volumes') or [[]]})
+    if len(ranks) != 1 or ranks[0] not in SPACING:
+        raise ValueError(
+            f"traffic {name!r}: 'volumes' must be all [z, y, x] (CT) or all "
+            f"[rows, cols] (2D), found entries of {ranks} sizes")
+    key = SPACING[ranks[0]]
+    if len(mix.get(key) or ()) != ranks[0]:
+        raise ValueError(f"traffic {name!r}: a mix of {ranks[0]}D "
+                         f"'volumes' gives {ranks[0]} sizes in {key!r}")
+
+
 def cell(root: str, name: str) -> Cell:
     """The cell called ``name``, its files read. Raises KeyError for a name
-    that BENCHMARK.json does not list."""
+    that BENCHMARK.json does not list, ValueError for a mix that check_mix
+    refuses."""
     m = manifest(root)
     found = [w for w in m['workloads'] if w['name'] == name]
     if not found:
@@ -57,10 +93,11 @@ def cell(root: str, name: str) -> Cell:
     w = found[0]
     d = bench_dir(root)
     config_path = os.path.join(d, 'configs', f"{w['config']}.json")
+    mix = _load(os.path.join(d, 'traffic', f"{w['traffic']}.json"))
+    check_mix(w['traffic'], mix)
     return Cell(
         name=name, chips=int(w['chips']), config_path=config_path,
-        config=_load(config_path),
-        traffic=_load(os.path.join(d, 'traffic', f"{w['traffic']}.json")),
+        config=_load(config_path), traffic=mix,
         limits=_load(os.path.join(d, 'workloads', f'{name}.json'))['limits'],
         end_to_end=[e for e in m['end_to_end'] if applies(e, name)],
         per_layer=[p for p in m['per_layer'] if applies(p, name)])

@@ -1,18 +1,20 @@
 """The plain reference of the whole predict chain that decides ``correct``.
 
-It re-derives, from the int16 volume and the checkpoint files the benchmark
+It re-derives, from the int16 image and the checkpoint files the benchmark
 wrote, what ``TS2D.predict`` should answer, using numpy, scipy and plain
 torch only: nothing of the program, nothing of the JAX package. The chain
 follows the published nnU-Net 2D inference semantics (the oracle that
 ``tests/reference_chain.py`` keeps for the CPU tests, frozen here):
 
-    coronal MIP + AIP of the RAI volume -> crop to nonzero -> z-score per
+    the model input (a CT volume's coronal MIP + AIP in RAI; a native 2D
+    radiograph as its own single channel) -> crop to nonzero -> z-score per
     channel -> order-3 B-spline resize to the plan spacing (scipy, mirror
     boundary, half-pixel grid) -> symmetric zero pad to the patch ->
     sliding windows at step 0.5 -> U-Net forwards of every tile under every
     mirror, averaged -> Gaussian-weighted overlap-add -> unpad -> order-1
     resize of the logits back to the crop -> sigmoid > 0.5 per label ->
-    re-embed, groups concatenated in model order (the merged mask).
+    re-embed, groups concatenated in model order (the merged mask), one
+    group at a time.
 
 The U-Net is nnU-Net's PlainConvUNet with its state-dict names, run in
 float32 with TF32 off. ``quant`` rounds every conv and transposed-conv
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.ndimage as ndi
@@ -167,6 +169,23 @@ def project(volume: np.ndarray) -> np.ndarray:
     return np.stack([mip, aip], axis=-1)
 
 
+def model_input(image: np.ndarray, spacing: Sequence[float]):
+    """An int16 image of the traffic and its spacing in ITK order -> the
+    (H, W, C) float32 array the models read and its (y, x) spacing: a
+    (z, y, x) CT volume's (z, x, 2) coronal projection at the z and x
+    spacing; a (rows, cols) radiograph as its own single channel."""
+    arr = (project(image) if image.ndim == 3
+           else image.astype(np.float32)[..., None])
+    return arr, spacing_yx(spacing)
+
+
+def spacing_yx(spacing: Sequence[float]) -> Tuple[float, float]:
+    """A mix's spacing in ITK order -> the (rows, cols) spacing of its model
+    inputs: a CT's coronal projection (z, x), a radiograph's (y, x)."""
+    return ((spacing[2], spacing[0]) if len(spacing) == 3
+            else (spacing[1], spacing[0]))
+
+
 def nonzero_bbox(arr: np.ndarray):
     ys, xs = np.nonzero(np.any(arr != 0, axis=-1))
     if ys.size == 0:
@@ -244,13 +263,19 @@ def mirror_combos(axes: Sequence[int]) -> List[Tuple[int, ...]]:
     return combos
 
 
+def resampled_shape(shape_hw: Sequence[int], spacing_yx: Sequence[float],
+                    plan_spacing: Sequence[float]) -> Tuple[int, ...]:
+    """The crop's shape at the plan spacing."""
+    return tuple(int(round(n * o / s)) for n, o, s in
+                 zip(shape_hw, spacing_yx, plan_spacing))
+
+
 def tile_count(shape_hw: Tuple[int, int], spacing_yx: Sequence[float],
                patch: Tuple[int, int], plan_spacing: Sequence[float],
                step: float) -> int:
     """Tiles of one scan's sliding window: the crop resized to the plan
     spacing, padded up to the patch."""
-    rs = [int(round(n * o / s)) for n, o, s in
-          zip(shape_hw, spacing_yx, plan_spacing)]
+    rs = resampled_shape(shape_hw, spacing_yx, plan_spacing)
     return int(np.prod([len(sliding_steps(max(n, p), p, step))
                         for n, p in zip(rs, patch)]))
 
@@ -270,21 +295,21 @@ def float32_only():
 
 
 @torch.no_grad()
-def logits(arr: np.ndarray, spacing_yx: Sequence[float],
-           groups: Sequence[Sequence[RefUNet]], patch: Tuple[int, int],
-           plan_spacing: Sequence[float], step: float,
-           mirror_axes: Sequence[int], quant: Optional[str] = None,
-           chunk: int = 16) -> torch.Tensor:
-    """(H, W, C) projection -> (H, W, sum of labels) float32 logits on the
-    nets' device, the groups' channels concatenated in order; -inf outside
-    the crop, where every label is background. ``groups``: each group's
-    networks, one a fold, averaged."""
+def group_logits(arr: np.ndarray, spacing_yx: Sequence[float],
+                 groups: Sequence[Sequence[RefUNet]], patch: Tuple[int, int],
+                 plan_spacing: Sequence[float], step: float,
+                 mirror_axes: Sequence[int], quant: Optional[str] = None,
+                 chunk: int = 16) -> Iterator[torch.Tensor]:
+    """(H, W, C) model input -> each group's (H, W, labels) float32 logits
+    on the nets' device, in model order; -inf outside the crop, where every
+    label is background. ``groups``: each group's networks, one a fold,
+    averaged. One group's logits at a time: a radiograph's 117 labels
+    together would take gigabytes a copy."""
     device = next(groups[0][0].parameters()).device
     (y0, y1), (x0, x1) = nonzero_bbox(arr)
     work = zscore(arr[y0:y1, x0:x1])
     crop = work.shape[:2]
-    rs = tuple(int(round(n * o / s)) for n, o, s in
-               zip(crop, spacing_yx, plan_spacing))
+    rs = resampled_shape(crop, spacing_yx, plan_spacing)
     work = resize_cubic(work, rs)
     padded = tuple(max(n, p) for n, p in zip(rs, patch))
     pads = [((t - n) // 2, t - n - (t - n) // 2) for n, t in zip(rs, padded)]
@@ -304,10 +329,9 @@ def logits(arr: np.ndarray, spacing_yx: Sequence[float],
     for ty, tx in starts:
         wacc[ty:ty + patch[0], tx:tx + patch[1]] += gauss
 
-    parts = []
     T = len(starts)
-    with float32_only():
-        for folds in groups:
+    for folds in groups:
+        with float32_only():
             out = sum(torch.cat([net(batch[i:i + chunk], quant)
                                  for i in range(0, len(batch), chunk)])
                       for net in folds)
@@ -322,9 +346,8 @@ def logits(arr: np.ndarray, spacing_yx: Sequence[float],
             lg = acc / wacc.clamp_min(1e-8)
             lg = lg[:, pads[0][0]:pads[0][0] + rs[0],
                     pads[1][0]:pads[1][0] + rs[1]]
-            parts.append(resize_linear(lg, crop))
-    inside = torch.cat(parts)
-    full = torch.full((inside.shape[0],) + arr.shape[:2], float('-inf'),
-                      device=device)
-    full[:, y0:y1, x0:x1] = inside
-    return full.permute(1, 2, 0)
+            full = torch.full((lg.shape[0],) + arr.shape[:2], float('-inf'),
+                              device=device)
+            full[:, y0:y1, x0:x1] = resize_linear(lg, crop)
+        yield full.permute(1, 2, 0)
+        del full       # before the next group's is made

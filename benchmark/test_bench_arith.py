@@ -1,16 +1,22 @@
 """The benchmark's arithmetic: percentiles, spreads, rates, the busy union
-and its gaps, the roofline bounds, and the U-Net's operation count against
-torch's own counter."""
+and its gaps, the roofline bounds, the U-Net's operation count against
+torch's own counter, and the tiles and prefilter passes of CT and 2D
+mixes."""
 
+import json
+import os
 import statistics
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import arith, reference
+from benchmark import arith, harness, manifest, reference
 from benchmark.profiling import Slice
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize('n', [1, 2, 7, 100, 101])
@@ -82,3 +88,107 @@ def test_unet_flops_match_torchs_counter(features, h):
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         net(torch.zeros(1, 2, h, h))
     assert arith.unet_flops(features, 2, 5, h, h) == counter.get_total_flops()
+
+
+def _cell(config, mix):
+    return SimpleNamespace(config=config, traffic=mix)
+
+
+def test_2d_tiles_by_hand():
+    """A detector-size radiograph cropped to its collimation: the crop's
+    tiles at its spacing, counted here by hand from the sliding steps."""
+    config = json.load(open(os.path.join(ROOT, 'benchmark', 'configs',
+                                         'ts2d-v2-fast.json')))
+    mix = {'spacing_xy': [0.148, 0.16], 'volumes': [[2544, 3056]]}
+    image = np.zeros((2544, 3056), np.int16)
+    image[70:2470, 100:3000] = 1
+    assert harness.extent(image) == (2400, 2900)
+    # rows at 0.16 mm, cols at 0.148 mm, to 1.5 mm: 256 x 286, one tile
+    # high, two across
+    rs = (round(2400 * 0.16 / 1.5), round(2900 * 0.148 / 1.5))
+    assert rs == (256, 286)
+    want = (len(reference.sliding_steps(256, 256, 0.5))
+            * len(reference.sliding_steps(286, 256, 0.5)))
+    assert want == 2
+    assert harness.tiles(_cell(config, mix), (2400, 2900)) == want
+    # 0.4 mm: 640 x 773, 4 x 6 tiles
+    mix['spacing_xy'] = [0.4, 0.4]
+    assert harness.tiles(_cell(config, mix), (2400, 2900)) == (
+        len(reference.sliding_steps(640, 256, 0.5))
+        * len(reference.sliding_steps(773, 256, 0.5))) == 24
+    # a CT volume's extent is its coronal projection's, whole
+    assert harness.extent(np.zeros((300, 512, 480), np.int16)) == (300, 480)
+
+
+def _old_prefilter_bound(mix, v, channels):
+    """The formula of the CT-only benchmark, kept to compare with."""
+    z, _, x = mix['volumes'][v]
+    return arith.prefilter_bound_s([(z, x * channels), (x, z * channels)])
+
+
+@pytest.mark.parametrize('traffic', ['solo', 'cohort8', 'cohort8-mixed'])
+@pytest.mark.parametrize('config', ['ts2d-v2-fast', 'ts2d-v2-exact'])
+def test_prefilter_roofline_of_a_ct_mix_is_the_old_formulas(traffic, config):
+    cfg = json.load(open(os.path.join(ROOT, 'benchmark', 'configs',
+                                      f'{config}.json')))
+    mix = json.load(open(os.path.join(ROOT, 'benchmark', 'traffic',
+                                      f'{traffic}.json')))
+    read = manifest.reader(ROOT, 'prefilter_roofline')
+    extents = [(z, x) for z, _, x in mix['volumes']]
+    sp = reference.spacing_yx(mix['spacing_xyz'])
+    for v, e in enumerate(extents):
+        got = arith.prefilter_bound_s(read.__globals__['passes'](e, sp, cfg))
+        assert got == _old_prefilter_bound(mix, v, len(cfg['channels']))
+    scans = list(range(len(extents))) * 2
+    run = SimpleNamespace(
+        cell=_cell(cfg, mix), extents=extents,
+        slice=Slice(0.0, 1.0, [('prefilter_kernel', 0.0, 0.25)], host=[],
+                    scans=scans))
+    old = 0.0
+    for v in scans:
+        old += _old_prefilter_bound(mix, v, len(cfg['channels']))
+    assert read(run) == 100.0 * old / 0.25
+
+
+def test_prefilter_roofline_of_a_2d_mix():
+    """Two passes over a radiograph's (rows, cols x 1) and (cols, rows x 1)
+    crop; none along an axis the down-resample leaves alone."""
+    cfg = json.load(open(os.path.join(ROOT, 'benchmark', 'configs',
+                                      'ts2d-v2-fast.json')))
+    cfg['channels'] = ['xray']
+    passes = manifest.reader(ROOT, 'prefilter_roofline').__globals__[
+        'passes']
+    assert passes((2400, 2900), (0.148, 0.148), cfg) == [(2400, 2900),
+                                                         (2900, 2400)]
+    assert passes((300, 200), (1.5, 0.5), cfg) == [(200, 300)]
+    mix = {'spacing_xy': [0.148, 0.148], 'volumes': [[2544, 3056]]}
+    run = SimpleNamespace(
+        cell=_cell(cfg, mix), extents=[(2400, 2900)],
+        slice=Slice(0.0, 1.0, [('prefilter_kernel', 0.0, 0.001)], host=[],
+                    scans=[0]))
+    want = 2 * 2 * 2400 * 2900 * 4 / 3.35e12       # bytes bound
+    assert manifest.reader(ROOT, 'prefilter_roofline')(run) == \
+        pytest.approx(100.0 * want / 0.001, rel=1e-12)
+
+
+def test_one_channel_network_counts():
+    """At one input channel stage 0's first conv is not fused (C < 16) and
+    its operations are counted at C = 1, as torch counts them."""
+    features = [32, 64, 128, 256, 512, 512]
+    blocks = arith.fused_launches(features, 1, (256, 256))
+    assert len(blocks) == 16 and blocks[0] == (256, 256, 32, 32)
+    assert arith.fused_launches(features, 16, (256, 256))[0] == (
+        256, 256, 16, 32)
+    arch = reference.Arch(in_channels=1, out_channels=24,
+                          features=(8, 16, 32, 32))
+    net = reference.RefUNet(arch).eval()
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        net(torch.zeros(1, 1, 64, 64))
+    assert arith.unet_flops((8, 16, 32, 32), 1, 24, 64, 64) == \
+        counter.get_total_flops()
+    config = {'mirror_axes': [0, 1], 'folds': [0], 'patch_size': [64, 64],
+              'features_per_stage': [8, 16, 32, 32], 'channels': ['xray'],
+              'groups': {'a': 24, 'b': 24}}
+    mfu = manifest.reader(ROOT, 'step_mfu_pct').__globals__
+    assert mfu['flops_per_scan'](config, 3) == 3 * 4 * 2 * \
+        counter.get_total_flops()

@@ -1,7 +1,9 @@
 """BENCHMARK.json against the benchmark's contract, every cell resolving its
-files by name, and a cell added as files only."""
+files by name, a CT cell and a native 2D cell added as files only, and a
+mix of two kinds refused."""
 
 import json
+import math
 import os
 import re
 import shutil
@@ -120,3 +122,98 @@ def test_a_cell_added_as_files_only(tmp_path, bench, run_small, small_root):
     assert line['metrics']['window.scans']['value'] >= 2
     for path, data in before.items():
         assert open(path, 'rb').read() == data
+
+
+# every per-layer metric a solo 2D cell reports (the batcher's metrics are
+# the cohorts', fused_block_roofline the fast precision's)
+SOLO_2D = ['api.dispatch_ms', 'api.project_ms', 'api.finish_host_ms',
+           'program.launches_per_scan', 'step_mfu_pct', 'prefilter_roofline',
+           'device.idle_pct', 'program.enqueue_ms', 'engine.fetch_host_ms']
+# of those, what a CPU run can read (the rest read the card's kernels)
+ON_THE_CPU = {'api.dispatch_ms', 'api.project_ms', 'api.finish_host_ms',
+              'program.enqueue_ms', 'engine.fetch_host_ms'}
+
+
+def test_a_2d_cell_added_as_files_only(tmp_path, run_small, small_root,
+                                       capsys):
+    """A native 2D X-ray configuration (one channel), a mix of two chest
+    radiographs at 0.4 mm (a multi-tile one, both cropped to their
+    collimation), its limits and its cell: new files and BENCHMARK.json
+    entries only. The harness runs it at both trace settings and the
+    calibration reads it and its control, every check beside its limit."""
+    from benchmark import calibrate
+    root = str(tmp_path / 'root')
+    shutil.copytree(small_root, root,
+                    ignore=shutil.ignore_patterns('build'))
+    b = os.path.join(root, 'benchmark')
+    before = {os.path.join(dp, f): open(os.path.join(dp, f), 'rb').read()
+              for dp, _, fs in os.walk(b) for f in fs}
+    cfg = json.load(open(os.path.join(b, 'configs', 'ts2d-v2-exact.json')))
+    # heads shifted so that a label covers about a per cent of a radiograph
+    # at this small architecture, as -2.2 makes it of a CT's projection
+    cfg.update(name='tsxr-exact', channels=['xray'], head_bias_shift=-1.0)
+    json.dump(cfg, open(os.path.join(b, 'configs', 'tsxr-exact.json'), 'w'))
+    json.dump({'entry': 'predict', 'in_flight': 1, 'spacing_xy': [0.4, 0.4],
+               'volumes': [[480, 560], [200, 240]], 'traced_scans': 2},
+              open(os.path.join(b, 'traffic', 'xr-pair.json'), 'w'))
+    limits = {'worst_flip_logit': 2e-4, 'flip_share': 2e-6}
+    json.dump({'limits': limits},
+              open(os.path.join(b, 'workloads', 'xr-exact.pair.json'), 'w'))
+    m = json.load(open(os.path.join(root, 'BENCHMARK.json')))
+    m['configs'].append({'name': 'tsxr-exact', 'source': 's',
+                         'file': 'benchmark/configs/tsxr-exact.json',
+                         'reduced': [], 'why': 'one channel, native 2D'})
+    m['workloads'].append({'name': 'xr-exact.pair', 'config': 'tsxr-exact',
+                           'traffic': 'xr-pair', 'chips': 1, 'why': 'w'})
+    for p in m['per_layer']:
+        if p['name'] in SOLO_2D:
+            p['workloads'].append('xr-exact.pair')
+    json.dump(m, open(os.path.join(root, 'BENCHMARK.json'), 'w'))
+
+    for trace in (0, 1):
+        code, line, err = run_small('xr-exact.pair', trace=trace, root=root)
+        assert code == 0, err
+        assert line['correct'], line['check']
+        assert list(line['check']) == list(limits) + [
+            'failed_scans', 'volumes_unchecked']
+        assert list(line)[-1] == 'check'
+        for name, c in line['check'].items():
+            assert math.isfinite(c['value']), name
+            assert f"check {name}: {c['value']} (limit {c['limit']})" in err
+        assert line['check']['volumes_unchecked']['value'] == 0
+        assert 0.005 < line['reference_foreground'] < 0.05
+        want = ON_THE_CPU if trace else {'scans_per_s', 'setup_s'}
+        assert want <= set(line['metrics']), line['metrics']
+        assert all(v['value'] > 0 for v in line['metrics'].values())
+
+    assert calibrate.main(['--workload', 'xr-exact.pair', '--seeds', '1',
+                           '--first-seed', str(2 ** 31 + 40),
+                           '--seconds', '0.5', '--controls', '1'],
+                          root, device='cpu') == 0
+    program, control = [json.loads(x) for x in
+                        capsys.readouterr().out.strip().splitlines()[-2:]]
+    assert program['side'] == 'program' and program['failed'] == 0
+    assert control['side'] == 'control-tf32'
+    assert all(program[k] <= v for k, v in limits.items()), program
+    assert any(control[k] > v for k, v in limits.items()), control
+    for path, data in before.items():
+        assert open(path, 'rb').read() == data
+
+
+@pytest.mark.parametrize('mix,key', [
+    ({'spacing_xy': [1, 1], 'volumes': [[30, 40], [20, 30, 40]]},
+     'volumes'),
+    ({'spacing_xyz': [1, 1, 2], 'volumes': [[30, 40]]}, 'spacing_xy'),
+    ({'spacing_xy': [1, 1], 'volumes': [[20, 30, 40]]}, 'spacing_xyz'),
+    ({'spacing_xy': [1, 1], 'volumes': []}, 'volumes'),
+])
+def test_a_mix_of_two_kinds_or_without_its_spacing_is_refused(
+        tmp_path, small_root, mix, key):
+    root = str(tmp_path / 'root')
+    shutil.copytree(small_root, root,
+                    ignore=shutil.ignore_patterns('build'))
+    with open(os.path.join(root, 'benchmark', 'traffic', 'solo.json'),
+              'w') as f:
+        json.dump(dict(mix, entry='predict', in_flight=1, traced_scans=1), f)
+    with pytest.raises(ValueError, match=repr(key)):
+        manifest.cell(root, 'ct-fast.solo')
