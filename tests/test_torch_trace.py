@@ -1,8 +1,9 @@
 """The port's span recorder (utils/trace.py) on the CPU: the span tree of one
 traced scan from ``TS2D.predict_async`` to its ``Result`` with batching on
 and off, the ids a coalesced batch carries, the batcher's solo counts, the
-off path, the profiler twins and their clock, the bounded buffer, and
-concurrent recording, on the small fixture set of tests/model_fixtures.py."""
+off path, the profiler twins and their clock, the bounded buffer,
+concurrent recording and the byte count a span carries, on the small
+fixture set of tests/model_fixtures.py."""
 
 import sys
 import threading
@@ -39,7 +40,8 @@ TREE = {
         'api.finish_predict': None, 'engine.wait': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
         'engine.place': 'api.finish_predict',
-        'api.assemble': 'api.finish_predict'}),
+        'api.assemble': 'api.finish_predict',
+        'api.split': 'api.assemble'}),
     False: dict(PROGRAM, **{
         'api.predict_async': None, 'api.project': 'api.predict_async',
         'api.reorient': 'api.project', 'engine.crop': 'api.predict_async',
@@ -51,7 +53,8 @@ TREE = {
         'api.finish_predict': None, 'engine.fetch': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
         'engine.place': 'api.finish_predict',
-        'api.assemble': 'api.finish_predict'}),
+        'api.assemble': 'api.finish_predict',
+        'api.split': 'api.assemble'}),
 }
 
 
@@ -309,3 +312,16 @@ def test_concurrent_recording_loses_nothing():
     assert all(by_id[s.parent].thread == s.thread
                and by_id[s.parent].scans == s.scans for s in inner)
     assert len({s.scans for s in inner}) == 16 * 50
+
+
+def test_count_bytes_off_and_outside_a_span():
+    trace.count_bytes(10)   # nothing records
+    trace.enable()
+    trace.count_bytes(5)    # no span open
+    with trace.span('outer', scan=trace.NEW):
+        with trace.span('inner'):
+            trace.count_bytes(3)
+            trace.count_bytes(4)
+        trace.count_bytes(1)
+    got = {s.name: s.nbytes for s in trace.collect()}
+    assert got == {'inner': 7, 'outer': 1}

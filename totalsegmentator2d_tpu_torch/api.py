@@ -27,6 +27,7 @@ it is downloaded from the registry first (inference/zoo.py).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import traceback
 from typing import Dict, List, Optional, Union
@@ -339,7 +340,11 @@ class TS2D:
         cache: dict = {}
         models = list(self.models.items())
         channels = sorted(models[0][1].channels.items(), key=lambda kv: kv[0])
-        with trace.span('api.project'):
+        # a native 2D image: its channels as they are, no reorient or
+        # projection
+        native = original.actual_dimension() <= 2
+        with trace.span('api.project'), (trace.span('api.input2d') if native
+                                         else contextlib.nullcontext()):
             model_input = self._model_input(original, models[0][0], channels,
                                             cache)
             native_2d = model_input.dim < 3
@@ -374,25 +379,28 @@ class TS2D:
         offset = 0
         merged_names: dict = {}
         merged_colors: dict = {}
-        for id_, model in models:
-            n = model.spec.arch.out_channels - (0 if model.multilabel else 1)
-            seg_arr = np.ascontiguousarray(merged2d[..., offset:offset + n])
-            seg = input2d.replace(array=seg_arr, is_vector=True, meta={})
-            colors = self._model_colors(model)
-            set_annotation_meta(seg, names=model.labels, colors=colors)
-            if not (collapse or native_2d):
-                seg = restore_dimension(seg, model_input)
-            mname, mgroup = decompose_model_key(id_)
-            result['models'][id_] = {
-                'id': id_, 'model': mname, 'group': mgroup,
-                'revision': model.revision, 'input': per_model_input,
-                'segmentation': seg,
-            }
-            for _, name in sorted(model.labels.items()):
-                merged_names[len(merged_names) + 1] = name
-                if name in colors:
-                    merged_colors[name] = colors[name]
-            offset += n
+        with trace.span('api.split'):   # each model's copy of its channels
+            for id_, model in models:
+                n = model.spec.arch.out_channels - (
+                    0 if model.multilabel else 1)
+                seg_arr = np.ascontiguousarray(
+                    merged2d[..., offset:offset + n])
+                seg = input2d.replace(array=seg_arr, is_vector=True, meta={})
+                colors = self._model_colors(model)
+                set_annotation_meta(seg, names=model.labels, colors=colors)
+                if not (collapse or native_2d):
+                    seg = restore_dimension(seg, model_input)
+                mname, mgroup = decompose_model_key(id_)
+                result['models'][id_] = {
+                    'id': id_, 'model': mname, 'group': mgroup,
+                    'revision': model.revision, 'input': per_model_input,
+                    'segmentation': seg,
+                }
+                for _, name in sorted(model.labels.items()):
+                    merged_names[len(merged_names) + 1] = name
+                    if name in colors:
+                        merged_colors[name] = colors[name]
+                offset += n
 
         if merge:
             seg_all = input2d.replace(array=merged2d, is_vector=True, meta={})

@@ -84,8 +84,10 @@ class _BatchResult:
 
     def _fetch_split(self, dev) -> np.ndarray:
         from .ensemble_engine import fetch_split
-        return fetch_split(dev, min_bytes=self._SPLIT_MIN_BYTES,
+        host = fetch_split(dev, min_bytes=self._SPLIT_MIN_BYTES,
                            streams=self._SPLIT_STREAMS, ready=self._ready)
+        trace.count_bytes(host.nbytes)
+        return host
 
     def _fetch_compacted(self) -> np.ndarray:
         from .ensemble_engine import fetch_compact, fetch_compact_batch

@@ -19,6 +19,8 @@ Serving, as in the reference package:
   nonzero 8-byte tiles compacted to a prefix plus an occupancy bitmap
   (:func:`_compact_pack`); the host fetches the bitmap and only the prefix
   its count needs (:func:`fetch_compact`), bit-identical to the plain wire;
+  each fetch counts the bytes it copied from the card into its enclosing
+  span, ``engine.fetch`` (utils/trace.py :func:`count_bytes`);
 - **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
   :meth:`~EnsembleEngine.finish_array`) and **micro-batching**
   (``auto_batch=N``: concurrent requests of one shape coalesce into the
@@ -265,11 +267,14 @@ def fetch_compact(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
     occ_np, prefix = _fetch_speculative(
         occ, (lambda: fetch_split(buf[:hint], ready=ready)) if hint else None,
         ready)
+    fetched = occ_np.nbytes + (prefix.nbytes if prefix is not None else 0)
     count = occupied_count(occ_np, T)
     k = pick_prefix(count, T)
     if prefix is None or count > hint:
         prefix = fetch_split(buf[:k], ready=ready)
+        fetched += prefix.nbytes
     cmeta['hint_solo'] = k
+    trace.count_bytes(fetched)
     return uncompact(prefix, occ_np, count, cmeta['shape'])
 
 
@@ -286,13 +291,16 @@ def fetch_compact_batch(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
     occ_np, slab = _fetch_speculative(
         occ, (lambda: fetch_split(buf[:, :hint], ready=ready)) if hint
         else None, ready)
+    fetched = occ_np.nbytes + (slab.nbytes if slab is not None else 0)
     bits = np.unpackbits(np.ascontiguousarray(occ_np), axis=-1,
                          bitorder='little')[:, :T].astype(bool)
     counts = bits.sum(axis=-1)
     kmax = pick_prefix(int(counts.max()), T)
     if slab is None or int(counts.max()) > hint:
         slab = fetch_split(buf[:, :kmax], ready=ready)
+        fetched += slab.nbytes
     cmeta['hint_batch'] = kmax
+    trace.count_bytes(fetched)
     B = slab.shape[0]
     out = np.zeros((B, T), _TILE_WORD)
     out[bits] = _words(np.concatenate([slab[i, :counts[i]] for i in range(B)]))
@@ -667,7 +675,9 @@ class EnsembleEngine(ScanEngine):
         if cmeta is not None:
             return (fetch_compact_batch if batch else fetch_compact)(
                 out, cmeta, ready)
-        return to_host(out, ready)
+        packed = to_host(out, ready)
+        trace.count_bytes(packed.nbytes)
+        return packed
 
     def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
                       ) -> np.ndarray:

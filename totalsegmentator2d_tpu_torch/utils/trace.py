@@ -12,7 +12,9 @@ and end (``time.perf_counter_ns``), its parent span, its thread and the
 scan ids it serves; a span opened without ``scan`` serves its parent's
 scans, so every span of one scan carries that scan's id on the caller's,
 the dispatcher's and the watcher's threads, and a batched program's spans
-carry every id in the batch. Spans are kept in a bounded in-memory buffer
+carry every id in the batch. A span may carry a count of bytes
+(:func:`count_bytes`: the ``engine.fetch`` span counts the bytes its fetch
+copied from the card). Spans are kept in a bounded in-memory buffer
 while the recorder is enabled (:func:`enable` ... :func:`collect`,
 :func:`disable`) and while a ``torch.profiler`` runs, and :func:`collect`
 gives them on the profiler's unix clock as well. While a profiler runs each
@@ -112,6 +114,7 @@ class Span(NamedTuple):
     end_ns: int
     unix_start_ns: int
     unix_end_ns: int
+    nbytes: int = 0   # the bytes counted into it (:func:`count_bytes`)
 
 
 class Recorder:
@@ -134,11 +137,12 @@ class Recorder:
         return stack
 
     def add(self, span_id: int, name: str, parent: Optional[int],
-            scans: tuple, start_ns: int, end_ns: int) -> None:
+            scans: tuple, start_ns: int, end_ns: int,
+            nbytes: int = 0) -> None:
         t = threading.current_thread()
         # deque.append is atomic: threads need no lock here
         self._spans.append((span_id, name, parent, t.ident, t.name, scans,
-                            start_ns, end_ns))
+                            start_ns, end_ns, nbytes))
 
     def new_span(self) -> int:
         return next(self._span_ids)
@@ -154,7 +158,7 @@ class Recorder:
     def collect(self) -> List[Span]:
         perf_ns, unix_ns = self._clock
         shift = unix_ns - perf_ns
-        return [Span(*s, s[6] + shift, s[7] + shift)
+        return [Span(*s[:8], s[6] + shift, s[7] + shift, s[8])
                 for s in list(self._spans)]
 
 
@@ -167,7 +171,7 @@ _NOOP = contextlib.nullcontext()
 
 
 class _Span:
-    __slots__ = ('name', 'scans', 'id', 'parent', 'start', 'twin')
+    __slots__ = ('name', 'scans', 'id', 'parent', 'start', 'twin', 'nbytes')
 
     def __init__(self, name: str, scan):
         self.name = name
@@ -185,6 +189,7 @@ class _Span:
         self.id = RECORDER.new_span()
         self.parent = parent.id if parent is not None else None
         self.twin = None
+        self.nbytes = 0
         if _profiling():
             self.twin = _Twin(self.name)
             self.twin.__enter__()
@@ -198,7 +203,7 @@ class _Span:
         if self.twin is not None:
             self.twin.__exit__(None, None, None)
         RECORDER.add(self.id, self.name, self.parent, self.scans, self.start,
-                     end)
+                     end, self.nbytes)
         return False
 
 
@@ -224,6 +229,16 @@ def scans() -> Tuple[int, ...]:
     """The scan ids of this thread's innermost open span; () when none."""
     stack = RECORDER.stack() if recording() else ()
     return stack[-1].scans if stack else ()
+
+
+def count_bytes(n: int) -> None:
+    """Add ``n`` bytes to this thread's innermost open span; nothing when
+    nothing records or no span is open."""
+    if not (RECORDER.on or _profiler._is_profiler_enabled):
+        return
+    stack = RECORDER.stack()
+    if stack:
+        stack[-1].nbytes += int(n)
 
 
 def stamp() -> Optional[Tuple[Tuple[int, ...], int]]:
