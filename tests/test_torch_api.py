@@ -21,6 +21,7 @@ import torch
 
 from tests.conftest import asset_path
 from tests.model_fixtures import build_group_set, build_model_dir
+from tests.result_chain import check_result_against_chain
 from totalsegmentator2d_tpu.api import TS2D as JaxTS2D
 from totalsegmentator2d_tpu.io import read_image as jax_read_image
 from totalsegmentator2d_tpu_torch.api import TS2D
@@ -70,6 +71,25 @@ def test_predict_matches_reference(results):
         np.testing.assert_allclose(out.get_projection(ch).array,
                                    ref.get_projection(ch).array,
                                    rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize('variant', ['solo', 'batched', 'bucket',
+                                     'no-merge', 'collapse'])
+def test_result_arrays_are_the_numpy_chain(model_root, monkeypatch, variant):
+    """The sample CT's Result through the fused set: every mask array the
+    numpy unpack, place, per-model copies and restore_dimension gave, bit
+    for bit, C-contiguous and its own memory, and the same Result as the
+    numpy fallback's; through the solo, batched and bucket programs."""
+    image = read_image(asset_path('sample_s0521.nrrd'))
+    kw = {'no-merge': {'merge': False},
+          'collapse': {'collapse': True}}.get(variant, {})
+    with TS2D(key=KEY, use_remote=False, local=model_root, device='cpu',
+              batching=variant == 'batched',
+              pad_quantum=32 if variant == 'bucket' else None) as tool:
+        res = check_result_against_chain(tool, image, monkeypatch, **kw)
+    seg = res.get_segmentation(res.models[0])
+    assert seg.array.shape[:-1] == ((133, 53) if variant == 'collapse'
+                                    else (133, 1, 53))
 
 
 def test_combine_segmentations_matches_reference_and_merge(results):

@@ -3,10 +3,13 @@ totalsegmentator2d_tpu_torch/io/native.py), built with g++ and zlib at first
 use, on the CPU: gzip and zlib round trips and interop with Python's zlib,
 corrupt input, concatenated gzip members, the Python fallback, streams
 driven through many zlib windows (a build with a 4 KiB window stands in for
-payloads of 4 GiB and more), and the fused MAX + MEAN projection: its mean
+payloads of 4 GiB and more), the fused MAX + MEAN projection: its mean
 bit for bit the port's float64 numpy mean and its device projection, within
 one float32 ulp of the reference package's, on any number of threads, and
-the threads each call takes."""
+the threads each call takes; and the one-pass assembly of a scan's masks
+into its Result's arrays, bit for bit numpy's unpack, place and per-group
+copies on any number of threads, and the cores it shares with the
+projection."""
 
 import ctypes
 import gzip
@@ -51,8 +54,10 @@ def test_library_is_built_in_the_package(lib):
     assert build.BUILD_DIR.startswith(PORT + os.sep)
     assert os.path.basename(path).startswith('libts2dio-')
     assert '_native' not in path
-    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION == 3
+    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION == 4
     assert lib.ts2dio_project_max_mean_i16_mt.argtypes[-1] is ctypes.c_longlong
+    assert lib.ts2dio_assemble_masks_mt.argtypes[-1] is ctypes.c_longlong
+    assert len(lib.ts2dio_assemble_masks_mt.argtypes) == 14
     # sources() still lists the CUDA kernels only
     assert build.sources() == ['fused_block', 'prefilter']
 
@@ -254,7 +259,7 @@ def test_projection_threads(monkeypatch):
     projections that run at once."""
     slab = native.PROJECT_SLAB_VOXELS
     big = 400 * 512 * 512
-    pool = native._Projections()
+    pool = native._HostPasses()
     monkeypatch.setattr(native, 'usable_cores', lambda: 8)
     with pool.share(slab - 1, 400) as n:
         assert n == 1
@@ -337,7 +342,7 @@ def test_concurrent_projections(lib):
     after = native.projection_counts()
     assert sum(after[k] - before[k] for k in ('threaded', 'serial')) == \
         callers * calls
-    assert native._projections._running == native._projections._held == 0
+    assert native._host_passes._running == native._host_passes._held == 0
 
 
 def test_project_against_reference(lib):
@@ -405,3 +410,249 @@ def test_flatten_vector_max_matches_reference():
         b = jax_flatten(JaxImage(array=arr, is_vector=True), index=index)
         assert a.array.dtype == b.array.dtype and not a.is_vector
         np.testing.assert_array_equal(a.array, b.array)
+
+
+# -- the Result's masks: unpack, place and split in one pass -----------------
+
+# label counts by group: the 117 of ts2d-v2 / tsxr-v2, v1's 104, one label,
+# one whole byte, one bit past it
+ASSEMBLY_COUNTS = {117: (24, 21, 22, 24, 26), 104: (18, 23, 20, 25, 18),
+                   1: (1,), 8: (3, 5), 9: (2, 7)}
+# (full (H, W), the crop's ((y0, y1), (x0, x1)), a bucket canvas (qh, qw)
+# and the window's corner in it, or None; a batch index, or None)
+ASSEMBLY_LAYOUTS = {
+    'inside': ((30, 40), ((5, 25), (7, 33)), None, None),
+    'top': ((30, 40), ((0, 20), (7, 33)), None, None),
+    'bottom': ((30, 40), ((10, 30), (7, 33)), None, None),
+    'left': ((30, 40), ((5, 25), (0, 26)), None, None),
+    'right': ((30, 40), ((5, 25), (14, 40)), None, None),
+    'full': ((30, 40), ((0, 30), (0, 40)), None, None),
+    'bucket': ((30, 40), ((5, 25), (7, 33)), ((32, 32), (0, 0)), None),
+    'bucket-offset': ((30, 40), ((3, 23), (0, 26)), ((24, 32), (2, 5)),
+                      None),
+    'batch-row': ((30, 40), ((5, 25), (7, 33)), None, 1),
+    'bucket-batch-row': ((30, 40), ((0, 20), (14, 40)), ((32, 32), (0, 0)),
+                         2),
+}
+
+
+def _handle(packed, idx, bbox, full):
+    """A batcher's handle whose future is resolved: the fetched (batch of)
+    packed masks, the scan's row, its bbox and frame."""
+    from concurrent.futures import Future
+    from types import SimpleNamespace
+    fut = Future()
+    fut.set_result((SimpleNamespace(get=lambda: packed), idx, bbox, full))
+    return ('future', fut)
+
+
+def _layout(name, n_labels, seed):
+    """(packed masks as the fetch gives them, batch index, bbox, full)."""
+    full, ((y0, y1), (x0, x1)), bucket, idx = ASSEMBLY_LAYOUTS[name]
+    h, w = y1 - y0, x1 - x0
+    bbox = ((y0, y1), (x0, x1))
+    canvas = (h, w)
+    if bucket is not None:
+        canvas, (sy, sx) = bucket
+        bbox += ((sy, sx, h, w),)
+    rng = np.random.default_rng(seed)
+    shape = ((3,) if idx is not None else ()) + canvas + (-(-n_labels // 8),)
+    return rng.integers(0, 256, shape, dtype=np.uint8), idx, bbox, full
+
+
+def _engine(counts):
+    """An EnsembleEngine's host half alone: what its finish reads."""
+    from totalsegmentator2d_tpu_torch.inference import EnsembleEngine
+    engine = object.__new__(EnsembleEngine)
+    engine.output_label_counts = list(counts)
+    return engine
+
+
+def _numpy_chain(engine, handle, counts):
+    """unpack_bits -> _place -> each group's np.ascontiguousarray."""
+    merged = engine.finish_array(handle)
+    ends = np.cumsum((0,) + tuple(counts))
+    return merged, [np.ascontiguousarray(merged[..., a:b])
+                    for a, b in zip(ends[:-1], ends[1:])]
+
+
+def _assert_same_arrays(got, want, merge):
+    merged, parts = got
+    if merge:
+        assert merged.dtype == np.uint8 and merged.flags.c_contiguous
+        assert merged.tobytes() == np.ascontiguousarray(want[0]).tobytes()
+        assert merged.shape == want[0].shape
+    else:
+        assert merged is None
+    assert len(parts) == len(want[1])
+    for a, b in zip(parts, want[1]):
+        assert a.dtype == np.uint8 and a.flags.c_contiguous
+        assert a.shape == b.shape and a.tobytes() == b.tobytes()
+    arrays = parts + ([merged] if merge else [])
+    for i, a in enumerate(arrays):
+        assert not any(np.shares_memory(a, b) for b in arrays[i + 1:])
+
+
+@pytest.mark.parametrize('layout', list(ASSEMBLY_LAYOUTS))
+@pytest.mark.parametrize('n_labels', list(ASSEMBLY_COUNTS))
+def test_finish_groups_is_the_numpy_chain(lib, monkeypatch, n_labels, layout):
+    """The engine's one-pass finish, bit for bit unpack_bits -> _place ->
+    each group's copy, for crops at each edge of the frame and the whole
+    frame, bucket windows and batch rows, on 1, 2, 3, 7 and 64 threads
+    (more than the frame has rows), merged and not."""
+    counts = ASSEMBLY_COUNTS[n_labels]
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout(layout, n_labels, n_labels)
+    want = _numpy_chain(engine, _handle(packed, idx, bbox, full), counts)
+    monkeypatch.setattr(native, 'ASSEMBLY_BAND_BYTES', 1)
+    for threads in (1, 2, 3, 7, 64):
+        monkeypatch.setattr(native, 'usable_cores', lambda: threads)
+        monkeypatch.setattr(native, 'PROJECT_MAX_THREADS', threads)
+        for merge in (True, False):
+            before = native.assembly_counts()
+            got = engine.finish_groups(_handle(packed, idx, bbox, full),
+                                       merge=merge)
+            _assert_same_arrays(got, want, merge)
+            after = native.assembly_counts()
+            assert after['threads'] - before['threads'] == min(threads,
+                                                                full[0])
+            assert after['numpy'] == before['numpy']
+
+
+@pytest.mark.parametrize('merge', [True, False])
+@pytest.mark.parametrize('threads', [1, 2, 3, 7, 64])
+def test_assemble_masks_on_any_thread_count(lib, threads, merge):
+    """The library's pass itself on ``threads`` bands, more than the
+    frame's 40 rows included, for a 117-label crop inside a bucket canvas:
+    the numpy chain's arrays."""
+    counts = ASSEMBLY_COUNTS[117]
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout('bucket-offset', 117, threads)
+    want = _numpy_chain(engine, _handle(packed, idx, bbox, full), counts)
+    sy, sx, h, w = bbox[2]
+    (y0, _), (x0, _) = bbox[:2]
+    got = native._assemble_native(lib, packed, (sy, sx, h, w), (y0, x0),
+                                  full, counts, merge, threads)
+    _assert_same_arrays(got, want, merge)
+
+
+def test_assembly_falls_back_without_the_library(lib, monkeypatch):
+    """No library, or packed masks the pass does not take (a pixel's bytes
+    not contiguous): numpy's chain, counted as such, the same arrays."""
+    counts = ASSEMBLY_COUNTS[117]
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout('left', 117, 3)
+    want = _numpy_chain(engine, _handle(packed, idx, bbox, full), counts)
+    before = native.assembly_counts()
+    monkeypatch.setattr(native, '_load', lambda: None)
+    for merge in (True, False):
+        got = engine.finish_groups(_handle(packed, idx, bbox, full),
+                                   merge=merge)
+        _assert_same_arrays(got, want, merge)
+    monkeypatch.undo()
+    strided = np.asfortranarray(packed)
+    assert native.assemble_masks(strided, (0, 0) + packed.shape[:2],
+                                 (5, 0), full, counts) is None
+    _assert_same_arrays(engine.finish_groups(
+        _handle(strided, idx, bbox, full)), want, True)
+    after = native.assembly_counts()
+    assert after['numpy'] - before['numpy'] == 4
+    assert after['threaded'] == before['threaded']
+
+
+def test_assembly_counts_a_threaded_call(lib, monkeypatch):
+    """A radiograph-like frame's assembly takes the threads its bytes pay
+    for, and counts them apart from the projections."""
+    monkeypatch.setattr(native, 'usable_cores', lambda: 4)
+    counts = ASSEMBLY_COUNTS[117]
+    packed = np.random.default_rng(11).integers(0, 256, (200, 300, 15),
+                                                dtype=np.uint8)
+    before = native.assembly_counts()
+    projections = native.projection_counts()
+    merged, parts = native.assemble_masks(packed, (0, 0, 200, 300), (10, 20),
+                                          (240, 320), counts)
+    after = native.assembly_counts()
+    assert after['threaded'] - before['threaded'] == 1
+    assert after['threads'] - before['threads'] == 4
+    assert after['serial'] == before['serial']
+    assert after['numpy'] == before['numpy']
+    assert native.projection_counts() == projections
+    want = np.zeros((240, 320, 117), np.uint8)
+    want[10:210, 20:320] = np.unpackbits(
+        packed, axis=-1, bitorder='little')[..., :117]
+    assert merged.tobytes() == want.tobytes()
+    assert np.concatenate(parts, axis=-1).tobytes() == want.tobytes()
+    # a tiny frame stays on the calling thread
+    native.assemble_masks(packed[:4, :4], (0, 0, 4, 4), (0, 0), (4, 4),
+                          counts)
+    assert native.assembly_counts()['serial'] - after['serial'] == 1
+
+
+def test_projection_and_assembly_share_the_cores(monkeypatch):
+    """An assembly that starts while a projection runs takes what the
+    projection leaves of the cores, and by its bytes."""
+    monkeypatch.setattr(native, 'usable_cores', lambda: 8)
+    pool = native._HostPasses()
+    band = native.ASSEMBLY_BAND_BYTES
+    big = 400 * 512 * 512
+    with pool.share(band * 3 - 1, 400, band) as n:
+        assert n == 2
+    with pool.share(big, 400) as a:
+        with pool.share(band * 64, 3000, band) as b:
+            assert (a, b) == (8, 1)
+    with pool.share(band * 64, 3000, band) as b:
+        with pool.share(big, 400) as a:
+            assert (b, a) == (8, 1)
+    with pool.share(6 * native.PROJECT_SLAB_VOXELS, 400) as a:
+        with pool.share(band * 64, 3000, band) as b:
+            assert (a, b) == (6, 2)
+    assert pool._running == pool._held == 0
+
+
+def test_concurrent_projections_and_assemblies(lib):
+    """More callers than cores, projections and assemblies interleaved and
+    switching often: every result exact, every call counted by its kind,
+    and no thread left held."""
+    vol = np.random.default_rng(12).integers(
+        -1024, 3000, (32, 128, 256)).astype(np.int16)
+    counts = ASSEMBLY_COUNTS[117]
+    packed = np.random.default_rng(13).integers(0, 256, (120, 160, 15),
+                                                dtype=np.uint8)
+    want_projection = _serial(lib, vol)
+    want_assembly = native._assemble_native(lib, packed, (0, 0, 120, 160),
+                                            (4, 6), (128, 170), counts, True,
+                                            1)
+    callers, calls = 2 * native.usable_cores() + 2, 4
+    before = native.projection_counts(), native.assembly_counts()
+    bad = []
+
+    def run(i):
+        for _ in range(calls):
+            if i % 2:
+                got = native.project_max_mean(vol)
+                want = want_projection
+            else:
+                merged, parts = native.assemble_masks(
+                    packed, (0, 0, 120, 160), (4, 6), (128, 170), counts)
+                got = [merged] + parts
+                want = [want_assembly[0]] + want_assembly[1]
+            if any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                bad.append(i)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(callers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    after = native.projection_counts(), native.assembly_counts()
+    for b, a in zip(before, after):
+        assert sum(a[k] - b[k] for k in ('threaded', 'serial')) == \
+            callers // 2 * calls
+    assert native._host_passes._running == native._host_passes._held == 0

@@ -39,7 +39,6 @@ TREE = {
         'program.enqueue': 'batcher.dispatch', 'engine.fetch': None,
         'api.finish_predict': None, 'engine.wait': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
-        'engine.place': 'api.finish_predict',
         'api.assemble': 'api.finish_predict',
         'api.split': 'api.assemble'}),
     False: dict(PROGRAM, **{
@@ -52,7 +51,6 @@ TREE = {
         'program.enqueue': 'api.predict_async',
         'api.finish_predict': None, 'engine.fetch': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
-        'engine.place': 'api.finish_predict',
         'api.assemble': 'api.finish_predict',
         'api.split': 'api.assemble'}),
 }

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests import reference_chain as RC
+from tests.result_chain import check_result_against_chain
 from tests.model_fixtures import build_group_set
 from tests.torch_mirror import TorchPlainConvUNet, make_spec
 from totalsegmentator2d_tpu_torch.api import TS2D
@@ -173,6 +174,24 @@ def test_result_layout(predicted):
         assert list(res.data['projections']) == ['ch0']
         np.testing.assert_array_equal(res.get_projection('ch0').array, arr)
         assert res.get_input().array is arr
+
+
+@pytest.mark.parametrize('batching,merge', [(False, True), (True, True),
+                                            (False, False)])
+def test_result_arrays_are_the_numpy_chain(root, monkeypatch, batching,
+                                           merge):
+    """A seeded radiograph's Result: every mask array the numpy unpack,
+    place and per-model copies gave, bit for bit, C-contiguous and its own
+    memory, and the same Result as the numpy fallback's."""
+    img = MedicalImage(array=radiograph(IMAGES[0][0], 2 ** 31 + 5),
+                       spacing=IMAGES[0][1])
+    with TS2D(key=KEY, use_remote=False, fetch_remote=False, local=root,
+              device='cpu', batching=batching) as tool:
+        res = check_result_against_chain(tool, img, monkeypatch, merge=merge)
+        assert res.models == list(tool.models)
+    assert all(res.get_segmentation(i).array.shape
+               == IMAGES[0][0] + (len(LABELS[g]),)
+               for i, g in zip(res.models, GROUPS))
 
 
 @pytest.fixture

@@ -363,28 +363,26 @@ class TS2D:
         """The device half: wait for the ensemble's result and assemble the
         Result."""
         with trace.span('api.finish_predict', scan=ctx[-1]):
-            merged2d = self._fused.finish_array(ctx[0])
+            merged2d, parts = self._fused.finish_groups(ctx[0],
+                                                        merge=ctx[-2])
             with trace.span('api.assemble'):
-                return self._assemble(merged2d, *ctx[1:-1])
+                return self._assemble(merged2d, parts, *ctx[1:-1])
 
-    def _assemble(self, merged2d: np.ndarray, original: MedicalImage,
+    def _assemble(self, merged2d: Optional[np.ndarray],
+                  parts: List[np.ndarray], original: MedicalImage,
                   model_input: MedicalImage, input2d: MedicalImage,
                   cache: dict, collapse: bool, merge: bool) -> 'TS2D.Result':
-        """The Result of a fused run's merged masks: each model's
-        segmentation is its slice of the merged channels."""
+        """The Result of a fused run's masks: the merged masks (None
+        without ``merge``) and each model's own copy of its channels of
+        them, in model order."""
         models = list(self.models.items())
         native_2d = model_input.dim < 3
         per_model_input = input2d if collapse else model_input
         result: dict = {'models': {}}
-        offset = 0
         merged_names: dict = {}
         merged_colors: dict = {}
-        with trace.span('api.split'):   # each model's copy of its channels
-            for id_, model in models:
-                n = model.spec.arch.out_channels - (
-                    0 if model.multilabel else 1)
-                seg_arr = np.ascontiguousarray(
-                    merged2d[..., offset:offset + n])
+        with trace.span('api.split'):   # each model's image of its channels
+            for (id_, model), seg_arr in zip(models, parts):
                 seg = input2d.replace(array=seg_arr, is_vector=True, meta={})
                 colors = self._model_colors(model)
                 set_annotation_meta(seg, names=model.labels, colors=colors)
@@ -400,7 +398,6 @@ class TS2D:
                     merged_names[len(merged_names) + 1] = name
                     if name in colors:
                         merged_colors[name] = colors[name]
-                offset += n
 
         if merge:
             seg_all = input2d.replace(array=merged2d, is_vector=True, meta={})

@@ -3,7 +3,8 @@
 // The host-side hot paths beneath its IO and front end, bound through
 // ctypes by io/native.py: gzip/zlib inflate and deflate for the NRRD, NIfTI
 // and MetaImage payloads, the fused coronal MAX + MEAN projection of an
-// int16 CT, and the serial hot loops of the DICOM codecs (the JPEG Lossless
+// int16 CT, the unpack of a scan's packed masks into its Result's arrays,
+// and the serial hot loops of the DICOM codecs (the JPEG Lossless
 // and sequential-DCT Huffman decoders and the DCT reconstruction, the
 // JPEG-LS scan decoder, the JPEG 2000 Tier-1 block decoder and inverse
 // DWTs; io/jpegll.py, jpegdct.py, jpegls.py, jpeg2k.py). It is the
@@ -135,8 +136,10 @@ extern "C" {
 // Behavioural version of this library's entry points; io/native.py uses
 // the library only at the version it was written for (2: the codec entry
 // points, whose truncated-entropy streams return -4; 3: the projection
-// threaded over z slabs, ts2dio_project_max_mean_i16_mt).
-long long ts2dio_abi_version(void) { return 3; }
+// threaded over z slabs, ts2dio_project_max_mean_i16_mt; 4: the Result's
+// masks unpacked, placed and split in one threaded pass,
+// ts2dio_assemble_masks_mt).
+long long ts2dio_abi_version(void) { return 4; }
 
 // An upper bound for the inflated size of a gzip or zlib stream. A single
 // gzip member's ISIZE trailer (the size mod 2^32) is trusted when it is
@@ -299,6 +302,113 @@ long long ts2dio_project_max_mean_i16(const int16_t* vol, long long nz,
                                       float* out_max, float* out_mean) {
   return ts2dio_project_max_mean_i16_mt(vol, nz, ny, nx, out_max, out_mean,
                                         1);
+}
+
+// The Result's masks in one pass: the packed (h, w, nb) crop of a scan's
+// masks (bit c of label channel c in byte c / 8, little bit order) to one
+// byte a label in the full (H, W) frame, the crop at (y0, x0) and zero
+// around it, written straight into the merged (H, W, L) array (``merged``,
+// may be null) and into each of ``n_groups`` (H, W, counts[g]) arrays
+// (``outs[g]``), group g holding label channels [sum(counts[:g]),
+// sum(counts[:g + 1])) and L = sum(counts). ``src`` is the crop's first
+// byte and ``src_row`` the bytes between its rows (a window of a larger
+// canvas, or one scan of a batch); each pixel's nb bytes are contiguous.
+// The full frame's rows are split into ``threads`` contiguous bands, one a
+// thread (the calling thread takes the first); each thread writes every
+// byte of its rows of every output, zeros included, so no byte is written
+// by two threads and the output is the same for every thread count. A
+// thread the system refuses to start leaves its band to the calling
+// thread.
+// Returns H * W, or -1 for arguments that do not describe such a layout.
+long long ts2dio_assemble_masks_mt(const uint8_t* src, long long src_row,
+                                   long long nb, long long h, long long w,
+                                   long long y0, long long x0, long long H,
+                                   long long W, const long long* counts,
+                                   long long n_groups, uint8_t* merged,
+                                   uint8_t* const* outs, long long threads) {
+  if (nb <= 0 || h <= 0 || w <= 0 || H <= 0 || W <= 0 || n_groups <= 0 ||
+      threads <= 0 || src_row < w * nb || y0 < 0 || x0 < 0 ||
+      y0 + h > H || x0 + w > W)
+    return -1;
+  long long L = 0;
+  for (long long g = 0; g < n_groups; ++g) {
+    if (counts[g] <= 0) return -1;
+    L += counts[g];
+  }
+  if (L > nb * 8) return -1;
+  // byte -> its 8 bits as 8 bytes of 0 / 1, in bit order
+  static const auto bits = [] {
+    std::vector<uint8_t> t(256 * 8);
+    for (int b = 0; b < 256; ++b)
+      for (int i = 0; i < 8; ++i) t[b * 8 + i] = (b >> i) & 1;
+    return t;
+  }();
+  threads = std::min(threads, H);
+  const long long per = H / threads, rem = H % threads;
+  // every output as (base, bytes a pixel, its first label channel)
+  std::vector<uint8_t*> base;
+  std::vector<long long> width, first;
+  if (merged != nullptr) {
+    base.push_back(merged);
+    width.push_back(L);
+    first.push_back(0);
+  }
+  for (long long g = 0, at = 0; g < n_groups; at += counts[g++]) {
+    base.push_back(outs[g]);
+    width.push_back(counts[g]);
+    first.push_back(at);
+  }
+  auto band = [&](long long i) {
+    const long long r0 = i * per + std::min(i, rem);
+    const long long r1 = r0 + per + (i < rem ? 1 : 0);
+    // a crop row's labels, 8 * nb bytes a pixel, and 8 bytes that the word
+    // copies below may read past them
+    std::vector<uint8_t> labels(static_cast<size_t>(w * nb * 8 + 8));
+    uint8_t* const lab = labels.data();
+    const uint8_t* const lut = bits.data();
+    for (long long y = r0; y < r1; ++y) {
+      const bool inside = y >= y0 && y < y0 + h;
+      if (inside) {
+        const uint8_t* in = src + (y - y0) * src_row;
+        for (long long k = 0; k < w * nb; ++k)
+          std::memcpy(lab + k * 8, lut + in[k] * 8, 8);
+      }
+      for (size_t o = 0; o < base.size(); ++o) {
+        const long long n = width[o];
+        uint8_t* const row = base[o] + y * W * n;
+        if (!inside) {
+          std::memset(row, 0, static_cast<size_t>(W * n));
+          continue;
+        }
+        std::memset(row, 0, static_cast<size_t>(x0 * n));
+        std::memset(row + (x0 + w) * n, 0,
+                    static_cast<size_t>((W - x0 - w) * n));
+        uint8_t* dst = row + x0 * n;
+        const uint8_t* from = lab + first[o];
+        // whole words while the last word's up to 7 bytes past a pixel
+        // land in the labels of the row's next pixels, which those pixels
+        // then write; the row's last pixels copy their own bytes alone
+        const long long words = std::max(0LL, w - (7 + n - 1) / n);
+        for (long long x = 0; x < words; ++x, dst += n, from += nb * 8)
+          for (long long k = 0; k < n; k += 8)
+            std::memcpy(dst + k, from + k, 8);
+        for (long long x = words; x < w; ++x, dst += n, from += nb * 8)
+          std::memcpy(dst, from, static_cast<size_t>(n));
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(static_cast<size_t>(threads - 1));
+  for (long long i = 1; i < threads; ++i) {
+    try {
+      pool.emplace_back(band, i);
+    } catch (const std::system_error&) {
+      band(i);
+    }
+  }
+  band(0);
+  for (std::thread& t : pool) t.join();
+  return H * W;
 }
 
 // ---------------------------------------------------------------------------

@@ -22,7 +22,10 @@ Serving, as in the reference package:
   each fetch counts the bytes it copied from the card into its enclosing
   span, ``engine.fetch`` (utils/trace.py :func:`count_bytes`);
 - **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
-  :meth:`~EnsembleEngine.finish_array`) and **micro-batching**
+  :meth:`~EnsembleEngine.finish_array`, or
+  :meth:`~EnsembleEngine.finish_groups`, which unpacks, places and splits
+  the masks into each group's array in one native pass) and
+  **micro-batching**
   (``auto_batch=N``: concurrent requests of one shape coalesce into the
   batched program, inference/batching.py);
 - **quantized-shape serving** (``pad_quantum=N``): every crop rides the
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..io.native import assemble_masks
 from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
@@ -647,9 +651,9 @@ class EnsembleEngine(ScanEngine):
         return (out, bbox, arr.shape[:2], meta.get('compact'),
                 ready_event(out))
 
-    def finish_array(self, handle) -> np.ndarray:
-        """Wait for a :meth:`predict_array_async` handle; returns the
-        full-size merged multilabel one-hot uint8 segmentation."""
+    def _wait_packed(self, handle):
+        """Wait for a :meth:`predict_array_async` handle: (the scan's packed
+        masks on the host, its bbox, the full (H, W))."""
         if handle[0] == 'future':
             with trace.span('engine.wait'):
                 batch_result, idx, bbox, full = handle[1].result()
@@ -660,10 +664,41 @@ class EnsembleEngine(ScanEngine):
             out, bbox, full, cmeta, ready = handle
             with trace.span('engine.fetch'):
                 packed = self._fetch_packed(out, cmeta, ready)
+        return packed, bbox, full
+
+    def finish_array(self, handle) -> np.ndarray:
+        """Wait for a :meth:`predict_array_async` handle; returns the
+        full-size merged multilabel one-hot uint8 segmentation."""
+        packed, bbox, full = self._wait_packed(handle)
         with trace.span('engine.unpack'):
             seg = unpack_bits(packed, self.total_labels)
         with trace.span('engine.place'):
             return self._place(seg, bbox, full)
+
+    def finish_groups(self, handle, merge: bool = True
+                      ) -> Tuple[Optional[np.ndarray], List[np.ndarray]]:
+        """Wait for a :meth:`predict_array_async` handle; returns (the
+        merged segmentation :meth:`finish_array` returns, or None without
+        ``merge``; [each group's channels of it, in group order]), every
+        array C-contiguous and its own memory. One native pass unpacks,
+        places and splits the masks on the host's cores
+        (``io.native.assemble_masks``); without the library, numpy's unpack,
+        place and copies give the same arrays."""
+        packed, bbox, full = self._wait_packed(handle)
+        counts = self.output_label_counts
+        with trace.span('engine.unpack'):
+            window = bbox[2] if len(bbox) == 3 else (0, 0) + packed.shape[:2]
+            (y0, _), (x0, _) = bbox[:2]
+            got = assemble_masks(packed, window, (y0, x0), full, counts,
+                                 merge)
+            if got is not None:
+                return got
+            seg = self._place(unpack_bits(packed, self.total_labels), bbox,
+                              full)
+            ends = np.cumsum([0] + counts)
+            return (np.ascontiguousarray(seg) if merge else None,
+                    [np.ascontiguousarray(seg[..., a:b])
+                     for a, b in zip(ends[:-1], ends[1:])])
 
     def _fetch_masks(self, out, cmeta, ready, batch=False) -> np.ndarray:
         """A program's device masks as unpacked host masks."""

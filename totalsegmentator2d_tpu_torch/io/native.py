@@ -1,12 +1,13 @@
 """Bindings of the package's native host library (``csrc/ts2dio.cc``).
 
 The gzip/zlib payloads of NRRD, NIfTI and MetaImage, the fused MAX + MEAN
-host projection of an int16 CT and the serial hot loops of the DICOM
-codecs (JPEG Lossless, sequential DCT, JPEG-LS, JPEG 2000) run in C
-through ctypes. The library is built with the host C++ compiler and zlib
-at first use (:func:`~..ops.cuda.build.host_library`, into the package's
-``build/``). Where it cannot be built (no C++ compiler or zlib headers),
-Python's ``gzip``/``zlib``, numpy and each codec's Python path give the
+host projection of an int16 CT, the unpack of a scan's packed masks into
+its Result's arrays and the serial hot loops of the DICOM codecs (JPEG
+Lossless, sequential DCT, JPEG-LS, JPEG 2000) run in C through ctypes.
+The library is built with the host C++ compiler and zlib at first use
+(:func:`~..ops.cuda.build.host_library`, into the package's ``build/``).
+Where it cannot be built (no C++ compiler or zlib headers), Python's
+``gzip``/``zlib``, numpy and each codec's Python path give the
 same bytes and values, slower; a warning says so once. Each codec wrapper
 then returns None (``j2k_t1_block`` False), which sends its caller down
 the Python path. ``TS2D_NO_NATIVE`` set (to anything but the empty
@@ -16,9 +17,11 @@ the reference package.
 ``ctypes.CDLL`` releases the GIL for every call, so a projection on the
 caller's thread runs beside the micro-batcher's dispatcher thread, and the
 slices of a DICOM series decode in parallel on the series pool's threads.
-The projection itself runs on several threads over z slabs, as many as
-the volume's size pays for and the process's free cores allow
-(:func:`project_max_mean`); :func:`projection_counts` counts its paths.
+The projection itself runs on several threads over z slabs, and the
+masks' assembly over bands of the frame's rows, each on as many as its size
+pays for and the process's free cores allow, the two sharing the cores
+(:func:`project_max_mean`, :func:`assemble_masks`);
+:func:`projection_counts` and :func:`assembly_counts` count their paths.
 """
 
 from __future__ import annotations
@@ -28,14 +31,14 @@ import os
 import threading
 import zlib
 from contextlib import contextmanager
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..utils.logging import warn
 
 #: the library version these bindings were written for (ts2dio_abi_version)
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 # Threads of a file-level decode pool (io/dicom.py's series pool) set
 # ``in_file_worker`` here; nested decode stages (io/jpeg2k.py's code-block
@@ -72,6 +75,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong]
+    fn = lib.ts2dio_assemble_masks_mt
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 8
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_longlong])
     ll, p, i, d = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p, \
         ctypes.c_double
     signatures = {
@@ -182,12 +190,16 @@ def zlib_compress(data: bytes, level: int = 1) -> bytes:
     return out if out is not None else zlib.compress(data, level)
 
 
-#: the most threads one projection takes
+#: the most threads one host pass (a projection, a Result's masks) takes
 PROJECT_MAX_THREADS = 8
 #: the fewest voxels a projection thread is given: below it, starting the
 #: thread costs more than its slab saves (an 8-core x86 host projects 2^19
 #: voxels in ~0.1 ms on one thread, 2^22 in ~0.3 ms on eight, ~0.7 on one)
 PROJECT_SLAB_VOXELS = 1 << 19
+#: the fewest output bytes a thread of the masks' assembly is given: an
+#: 8-core x86 host writes 1.9 MB in ~0.5 ms on one thread and no faster on
+#: more, 7.7 MB in ~9.5 ms on one, ~4.5 on eight
+ASSEMBLY_BAND_BYTES = 1 << 20
 
 
 def usable_cores() -> int:
@@ -198,32 +210,38 @@ def usable_cores() -> int:
         return os.cpu_count() or 1
 
 
-class _Projections:
-    """The native projections running in the process, and the paths the
-    projections took."""
+class _HostPasses:
+    """The threaded native host passes running in the process (the MAX +
+    MEAN projection and the Result's masks share the cores), and the paths
+    each kind of pass took."""
+
+    KINDS = ('projection', 'assembly')
 
     def __init__(self):
         self._lock = threading.Lock()
         self._running = 0
-        self._held = 0      # threads of the projections running
-        self._counts = dict.fromkeys(('threaded', 'serial', 'numpy',
-                                      'threads'), 0)
+        self._held = 0      # threads of the passes running
+        self._counts = {kind: dict.fromkeys(('threaded', 'serial', 'numpy',
+                                             'threads'), 0)
+                        for kind in self.KINDS}
 
     @contextmanager
-    def share(self, voxels: int, slices: int) -> Iterator[int]:
-        """The threads one projection of ``voxels`` over ``slices`` z
-        slices takes while the context is open: as many as its size pays
-        for (PROJECT_SLAB_VOXELS each), at most its share of the usable
-        cores among the projections running (this one included) and none
-        that another holds; one inside a file-level decode worker, as the
-        codecs stay serial there."""
+    def share(self, units: int, parts: int,
+              per_thread: int = PROJECT_SLAB_VOXELS) -> Iterator[int]:
+        """The threads one pass of ``units`` of work over ``parts``
+        independent parts (a projection's voxels and z slices, an
+        assembly's output bytes and rows) takes while the context is open:
+        as many as its size pays for (``per_thread`` units each), at most
+        its share of the usable cores among the passes running (this one
+        included) and none that another holds; one inside a file-level
+        decode worker, as the codecs stay serial there."""
         cores = min(usable_cores(), PROJECT_MAX_THREADS)
         serial = getattr(decode_worker_local, 'in_file_worker', False)
         with self._lock:
             self._running += 1
             threads = 1 if serial else max(1, min(
                 cores // self._running, cores - self._held,
-                voxels // PROJECT_SLAB_VOXELS, slices))
+                units // per_thread, parts))
             self._held += threads
         try:
             yield threads
@@ -232,20 +250,21 @@ class _Projections:
                 self._running -= 1
                 self._held -= threads
 
-    def count(self, threads: int) -> None:
-        """One projection on ``threads`` native threads (0: numpy's)."""
+    def count(self, kind: str, threads: int) -> None:
+        """One pass of ``kind`` on ``threads`` native threads (0: numpy's)."""
         with self._lock:
             path = ('numpy' if threads == 0 else
                     'serial' if threads == 1 else 'threaded')
-            self._counts[path] += 1
-            self._counts['threads'] += threads
+            counts = self._counts[kind]
+            counts[path] += 1
+            counts['threads'] += threads
 
-    def counts(self) -> Dict[str, int]:
+    def counts(self, kind: str) -> Dict[str, int]:
         with self._lock:
-            return dict(self._counts)
+            return dict(self._counts[kind])
 
 
-_projections = _Projections()
+_host_passes = _HostPasses()
 
 
 def projection_counts() -> Dict[str, int]:
@@ -253,7 +272,15 @@ def projection_counts() -> Dict[str, int]:
     ``serial`` native calls, ``numpy`` (no library, or an input the native
     pass does not take: the caller projects in numpy), and ``threads``,
     the native threads they ran on in all."""
-    return _projections.counts()
+    return _host_passes.counts('projection')
+
+
+def assembly_counts() -> Dict[str, int]:
+    """The process's assemblies of a Result's masks
+    (:func:`assemble_masks`) by path, as :func:`projection_counts` counts
+    the projections: ``threaded``, ``serial``, ``numpy`` (the caller
+    unpacks, places and splits in numpy) and ``threads``."""
+    return _host_passes.counts('assembly')
 
 
 def _project_native(lib: ctypes.CDLL, vol: np.ndarray,
@@ -274,16 +301,82 @@ def project_max_mean(vol: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]
     the library (or the dtype or layout) does not apply. The mean is the
     exact integer sum divided by Y in double, so it equals numpy's
     ``mean(dtype=float64)`` rounded to float32 bit for bit. The pass runs
-    on the threads :meth:`_Projections.share` gives it, with the same
+    on the threads :meth:`_HostPasses.share` gives it, with the same
     result on any number."""
     lib = _load()
     if (lib is None or vol.ndim != 3 or vol.dtype != np.int16
             or not vol.flags.c_contiguous or 0 in vol.shape):
-        _projections.count(0)
+        _host_passes.count('projection', 0)
         return None
-    with _projections.share(vol.size, vol.shape[0]) as threads:
+    with _host_passes.share(vol.size, vol.shape[0]) as threads:
         res = _project_native(lib, vol, threads)
-    _projections.count(threads if res is not None else 0)
+    _host_passes.count('projection', threads if res is not None else 0)
+    return res
+
+
+# -- the Result's masks --------------------------------------------------------
+
+MaskArrays = Tuple[Optional[np.ndarray], List[np.ndarray]]
+
+
+def _assemble_native(lib: ctypes.CDLL, packed: np.ndarray, window, origin,
+                     full, counts: Sequence[int], merge: bool,
+                     threads: int) -> Optional[MaskArrays]:
+    """The native pass on ``threads`` threads over bands of the frame's
+    rows; None where the library refuses the layout."""
+    sy, sx, h, w = (int(v) for v in window)
+    H, W = (int(v) for v in full)
+    nb = int(packed.shape[-1])
+    merged = (np.empty((H, W, int(sum(counts))), np.uint8) if merge
+              else None)
+    parts = [np.empty((H, W, int(n)), np.uint8) for n in counts]
+    ptrs = (ctypes.c_void_p * len(parts))(*(p.ctypes.data for p in parts))
+    n_labels = np.asarray(counts, np.int64)
+    src = packed.ctypes.data + sy * packed.strides[0] + sx * nb
+    got = lib.ts2dio_assemble_masks_mt(
+        src, packed.strides[0], nb, h, w, int(origin[0]), int(origin[1]), H,
+        W, n_labels.ctypes.data, len(parts),
+        merged.ctypes.data if merge else None, ptrs, threads)
+    return (merged, parts) if got == H * W else None
+
+
+def assemble_masks(packed: np.ndarray, window, origin, full,
+                   counts: Sequence[int],
+                   merge: bool = True) -> Optional[MaskArrays]:
+    """A scan's packed masks as its Result's arrays in one pass: the
+    ``window`` (y, x, h, w) of the packed (rows, cols, ceil(L / 8)) uint8
+    masks (little bit order, ``np.unpackbits(..., bitorder='little')``)
+    unpacked to one byte a label, placed at ``origin`` (y0, x0) of the full
+    (H, W) frame with zeros around it, and split by ``counts``, the label
+    channels of each group in order. Returns (the merged (H, W, L) array,
+    or None without ``merge``; [each group's (H, W, counts[g]) array]),
+    every array C-contiguous and its own memory, equal to unpack, place and
+    ``np.ascontiguousarray`` of each group's channels; or None without the
+    library, or for a layout it does not take (a pixel's bytes not
+    contiguous, too few bits, a window off the canvas or the frame), which
+    the caller then assembles in numpy. Threads as
+    :meth:`_HostPasses.share` gives them, by the bytes written; the same
+    arrays on any number."""
+    lib = _load()
+    H, W = (int(v) for v in full)
+    _, _, h, w = (int(v) for v in window)
+    L = int(sum(counts))
+    if (lib is None or packed.dtype != np.uint8 or packed.ndim != 3
+            or packed.strides[2] != 1
+            or packed.strides[1] != packed.shape[2]
+            or packed.strides[0] < packed.shape[1] * packed.shape[2]
+            or L > 8 * packed.shape[2] or min(counts, default=0) < 1
+            or min(h, w, H, W) < 1 or min(window[:2]) < 0
+            or window[0] + h > packed.shape[0]
+            or window[1] + w > packed.shape[1] or min(origin) < 0
+            or origin[0] + h > H or origin[1] + w > W):
+        _host_passes.count('assembly', 0)
+        return None
+    nbytes = H * W * L * (2 if merge else 1)
+    with _host_passes.share(nbytes, H, ASSEMBLY_BAND_BYTES) as threads:
+        res = _assemble_native(lib, packed, window, origin, full, counts,
+                               merge, threads)
+    _host_passes.count('assembly', threads if res is not None else 0)
     return res
 
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # the host libraries: -ffp-contract=off keeps every float operation rounded
 # on its own, as numpy and the device code round them; -pthread for the
-# projection's threads
+# host passes' threads (the projection, the Result's masks)
 CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-shared', '-ffp-contract=off',
              '-pthread')
 CXX_LIBS = ('-lz',)
