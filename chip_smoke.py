@@ -1566,7 +1566,8 @@ def pad_reference(xe, crop):
     """The padded cohort's masks of one (z, y, x) volume, plainly: the host
     projection centred in the bucket, through the solo masked program with
     the placed valid-extent mask, the crop's window cut out."""
-    from totalsegmentator2d_tpu_torch.inference.program import ready_event
+    from totalsegmentator2d_tpu_torch.inference.wire import (DeviceResult,
+                                                             unpack_bits)
     z, _, x = crop.shape
     zq, xq = -(-z // PQ) * PQ, -(-x // PQ) * PQ
     sz, sx = (zq - z) // 2, (xq - x) // 2
@@ -1575,8 +1576,8 @@ def pad_reference(xe, crop):
     mask = np.zeros((zq, xq), bool)
     mask[sz:sz + z, sx:sx + x] = True
     fn, meta = xe._program_padded((zq, xq), SPACING_YX)
-    out = fn(canvas, mask)
-    masks = xe._fetch_masks(out, meta.get('compact'), ready_event(out))
+    masks = unpack_bits(DeviceResult(fn(canvas, mask), meta.get('compact'))
+                        .get(), xe.total_labels)
     return masks[sz:sz + z, sx:sx + x]
 
 

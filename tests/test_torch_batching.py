@@ -1,6 +1,6 @@
 """The PyTorch port's host runtime against fakes: the DynamicBatcher policy,
 its cancellation and elastic restart (the cases of
-tests/test_020_batching.py), the fetch-once _BatchResult, the AsyncRunner
+tests/test_020_batching.py), the fetch-once wire.DeviceResult, the AsyncRunner
 (tests/test_009_runtime.py) and ScanPipeline.
 
 A fake engine records every dispatched program and its batch size; a
@@ -16,8 +16,9 @@ import torch
 
 from totalsegmentator2d_tpu_torch.inference import (AsyncRunner,
                                                     DynamicBatcher,
+                                                    EnsembleEngine,
                                                     ScanPipeline)
-from totalsegmentator2d_tpu_torch.inference.batching import _BatchResult
+from totalsegmentator2d_tpu_torch.inference.wire import DeviceResult
 from totalsegmentator2d_tpu_torch.utils.trace import StageTimer, device_trace
 
 
@@ -58,6 +59,9 @@ class FakeEngine:
         self.dispatches = []      # (kind, program rows)
         self.outputs = []         # the SlowArray of each dispatch
         self._lock = threading.Lock()
+
+    # the engine's own solo launch, on these programs
+    _launch_solo = EnsembleEngine._launch_solo
 
     def _serving_program(self, shape, spacing, wire=None):
         def fn(x, mask=None):
@@ -410,19 +414,19 @@ class TestBatchResult:
     @pytest.mark.parametrize('streams', [1, 4])
     def test_large_result_fetches_bit_identically_and_once(self, streams,
                                                            monkeypatch):
-        monkeypatch.setattr(_BatchResult, '_SPLIT_STREAMS', streams)
+        monkeypatch.setattr(DeviceResult, '_SPLIT_STREAMS', streams)
         arr = np.random.default_rng(3).integers(0, 255, (8, 600_001),
                                                 dtype=np.uint8)
-        br = _BatchResult(torch.from_numpy(arr))
+        br = DeviceResult(torch.from_numpy(arr))
         out = br.get()
         assert out.dtype == np.uint8 and np.array_equal(out, arr)
         assert br.get() is out
 
     def test_one_download_stream_by_default(self):
-        assert _BatchResult._SPLIT_STREAMS == 1
+        assert DeviceResult._SPLIT_STREAMS == 1
 
     def test_solo_tall_result_splits_into_bounded_slabs(self, monkeypatch):
-        monkeypatch.setattr(_BatchResult, '_SPLIT_STREAMS', 4)
+        monkeypatch.setattr(DeviceResult, '_SPLIT_STREAMS', 4)
 
         class Counting(SlowArray):
             ndim, slices = 2, 0
@@ -437,8 +441,8 @@ class TestBatchResult:
                 return super().__getitem__(key)
 
         arr = np.arange(600 * 40, dtype=np.uint8).reshape(600, 40)
-        assert np.array_equal(_BatchResult(Counting(arr, 0.0)).get(), arr)
-        assert 2 <= Counting.slices <= _BatchResult._SPLIT_STREAMS
+        assert np.array_equal(DeviceResult(Counting(arr, 0.0)).get(), arr)
+        assert 2 <= Counting.slices <= DeviceResult._SPLIT_STREAMS
 
     def test_small_result_fetches_whole(self):
         class Spy(SlowArray):
@@ -454,11 +458,11 @@ class TestBatchResult:
                 return super().__getitem__(key)
 
         small = Spy(np.ones((8, 16), np.uint8), 0.0)
-        assert np.array_equal(_BatchResult(small).get(), small.arr)
+        assert np.array_equal(DeviceResult(small).get(), small.arr)
         assert not Spy.sliced
 
     def test_split_streams_run_concurrently(self, monkeypatch):
-        monkeypatch.setattr(_BatchResult, '_SPLIT_STREAMS', 4)
+        monkeypatch.setattr(DeviceResult, '_SPLIT_STREAMS', 4)
 
         class BigSlow(SlowArray):
             ndim = 2
@@ -471,7 +475,7 @@ class TestBatchResult:
         delay = 0.08
         arr = np.arange(8 * 32, dtype=np.uint8).reshape(8, 32)
         t0 = time.perf_counter()
-        out = _BatchResult(BigSlow(arr, delay)).get()
+        out = DeviceResult(BigSlow(arr, delay)).get()
         assert np.array_equal(out, arr)
         assert time.perf_counter() - t0 < 8 * delay * 0.7
 

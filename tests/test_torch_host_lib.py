@@ -443,7 +443,7 @@ def _handle(packed, idx, bbox, full):
     from types import SimpleNamespace
     fut = Future()
     fut.set_result((SimpleNamespace(get=lambda: packed), idx, bbox, full))
-    return ('future', fut)
+    return fut
 
 
 def _layout(name, n_labels, seed):

@@ -309,3 +309,29 @@ def test_native_library_is_the_ports_own():
         with open(path) as f:
             text = f.read()
         assert 'libts2dio.so' not in text and "'_native'" not in text, path
+
+
+def _inference_imports(module: str):
+    """The modules of ``inference/`` that ``inference/<module>.py`` imports
+    (relative imports, anywhere in the file)."""
+    path = os.path.join(PORT, 'inference', module + '.py')
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    got = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            got |= ({node.module} if node.module
+                    else {a.name for a in node.names})
+        elif isinstance(node, ast.ImportFrom) and (node.module or '') \
+                .startswith('totalsegmentator2d_tpu_torch.inference'):
+            got.add(node.module)
+    return got
+
+
+def test_the_wire_and_the_batcher_import_one_way():
+    """``inference/wire.py`` imports nothing of ``inference/``, and the
+    batcher does not import the engine that builds it."""
+    assert _inference_imports('wire') == set()
+    batching = _inference_imports('batching')
+    assert 'wire' in batching
+    assert not any('ensemble_engine' in m for m in batching), batching

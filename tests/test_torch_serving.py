@@ -31,8 +31,9 @@ from totalsegmentator2d_tpu.inference import Zoo as JaxZoo
 from totalsegmentator2d_tpu_torch.api import TS2D
 from totalsegmentator2d_tpu_torch.cli import ts2d_entry_point
 from totalsegmentator2d_tpu_torch.inference import EnsembleEngine, Zoo
-from totalsegmentator2d_tpu_torch.inference.ensemble_engine import (
-    _wire_pack, wire_detect)
+from totalsegmentator2d_tpu_torch.inference.wire import (DeviceResult,
+                                                         _wire_pack,
+                                                         wire_detect)
 from totalsegmentator2d_tpu_torch.io import read_image
 from totalsegmentator2d_tpu_torch.utils import device as D
 
@@ -100,9 +101,10 @@ def _batched(engine, arrs):
 
 def _solo(engine, program, meta, payload, arr):
     """finish_array of one solo program run on a whole (uncropped) input."""
-    out = program(payload, None)
-    return engine.finish_array((out, ((0, arr.shape[0]), (0, arr.shape[1])),
-                                arr.shape[:2], meta.get('compact'), None))
+    result = DeviceResult(program(payload, None), meta.get('compact'))
+    return engine.finish_array((result, None, ((0, arr.shape[0]),
+                                               (0, arr.shape[1])),
+                                arr.shape[:2]))
 
 
 @pytest.mark.parametrize('precision', ['exact', 'fast'])

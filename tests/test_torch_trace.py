@@ -17,7 +17,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from tests.model_fixtures import build_group_set
 from totalsegmentator2d_tpu_torch.api import TS2D
-from totalsegmentator2d_tpu_torch.inference import DynamicBatcher
+from totalsegmentator2d_tpu_torch.inference import (DynamicBatcher,
+                                                    EnsembleEngine)
 from totalsegmentator2d_tpu_torch.io import MedicalImage
 from totalsegmentator2d_tpu_torch.utils import trace
 
@@ -193,6 +194,8 @@ class HeldEngine:
 
     def __init__(self):
         self.release = threading.Event()
+
+    _launch_solo = EnsembleEngine._launch_solo
 
     def _serving_program(self, shape, spacing, wire=None):
         return (lambda x, mask=None: HeldArray(np.asarray(x)[None],

@@ -9,7 +9,10 @@ reference package's, on the CPU (the two-group synthetic database, patch
 - ``predict_volume`` against the host projection + ``predict_array``
   (> 0.9999, test_008:152) and against the reference's ``predict_volume``
   (>= 0.999 exact, >= 0.99 fast); async equals sync; a masked-norm plan
-  takes the host path; the compact wire is bit-identical.
+  takes the host path; the compact wire is bit-identical;
+- every program cache of the fused engine builds a program once, in one
+  ``program.build`` span, and every program's masks are fetched in one
+  ``engine.fetch`` span that counts the bytes the copies moved.
 
 Measured agreements are written beside the assertions."""
 
@@ -25,12 +28,13 @@ from totalsegmentator2d_tpu.inference import EnsembleEngine as JaxEngine
 from totalsegmentator2d_tpu.inference import Zoo as JaxZoo
 from totalsegmentator2d_tpu.ops.projection import \
     project_array as jax_project_array
-from totalsegmentator2d_tpu_torch.inference import EnsembleEngine, Zoo
+from totalsegmentator2d_tpu_torch.inference import EnsembleEngine, Zoo, wire
 from totalsegmentator2d_tpu_torch.io import MedicalImage
 from totalsegmentator2d_tpu_torch.ops.projection import (make_projected_image,
                                                          project,
                                                          project_array,
                                                          project_array_np)
+from totalsegmentator2d_tpu_torch.utils import trace
 
 KEY = 'ts2d-v9-test'
 SPACING = (1.0, 2.0)  # both projection axes resample
@@ -205,3 +209,125 @@ def test_nonzero_range_is_the_bounding_box():
             assert got == (None, None)
         else:
             assert got == ((zs.min(), zs.max() + 1), (xs.min(), xs.max() + 1))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these programs are small, and beside the other
+    test workers a thread pool per process oversubscribes the cores (a
+    predict on the caller's thread took a minute so, 0.1 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _small_ct(seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((24, 12, 20)) * 100 + 40).astype(np.float32)
+
+
+#: each program kind of the fused engine's cache: the call that builds it
+PROGRAM_KINDS = {
+    'solo': lambda e, v: e._program((24, 20), SPACING),
+    'bucket': lambda e, v: e._program_bucket((32, 32), SPACING),
+    '2d-masked': lambda e, v: e._program_padded((24, 20), SPACING),
+    'batch': lambda e, v: e._batched_program(2, (24, 20), SPACING, False),
+    'vol': lambda e, v: e.predict_volume(v, SPACING, MODES),
+    'cohort': lambda e, v: e.predict_cohort(v[None], SPACING, MODES),
+    'cohortpad': lambda e, v: e.predict_cohort_mixed(
+        [v], SPACING, MODES, bucket='pad', pad_quantum=16),
+}
+
+
+@pytest.mark.parametrize('kind', list(PROGRAM_KINDS))
+def test_each_program_builds_once_in_one_span(models, one_thread, kind):
+    """The first call builds the kind's program (and the solo or masked
+    program it extends), each build in one ``program.build`` span; the
+    second call builds nothing."""
+    engine = _port(models)
+    vol = _small_ct()
+
+    def call():
+        before = set(engine._cache)
+        trace.enable()
+        try:
+            PROGRAM_KINDS[kind](engine, vol)
+            spans = [s for s in trace.collect() if s.name == 'program.build']
+        finally:
+            trace.disable()
+        return [k for k in engine._cache if k not in before], spans
+
+    built, spans = call()
+    kinds = [k[0] if isinstance(k[0], str) else 'solo' for k in built]
+    assert kind in kinds and len(set(kinds)) == len(kinds), kinds
+    assert len(spans) == len(built), (kinds, spans)
+    assert call() == ([], [])
+
+
+def _fetch_case(engine, case, vol):
+    """Run ``case`` on the engine; returns the number of program results
+    it fetched."""
+    proj = engine._host_projection(vol, MODES)
+    if case in ('solo', 'solo-batcher'):
+        for _ in range(2):
+            engine.predict_array(proj, SPACING)
+        return 2
+    if case == 'batched':
+        engine.set_batch_linger(60_000.0)
+        try:
+            handles = [engine.predict_array_async(proj + i, SPACING)
+                       for i in range(2)]
+            for h in handles:
+                engine.finish_array(h)
+        finally:
+            engine.set_batch_linger(0.0)
+        return 1
+    if case == 'volume':
+        for _ in range(2):
+            engine.predict_volume(vol, SPACING, MODES)
+        return 2
+    if case == 'cohort':
+        engine.predict_cohort(np.stack([vol, vol + 1]), SPACING, MODES)
+        return 1
+    engine.predict_cohort_mixed([vol, vol[:20]], SPACING, MODES,
+                                bucket='pad', pad_quantum=16)
+    return 1
+
+
+@pytest.mark.parametrize('compact', [True, False])
+@pytest.mark.parametrize('case', ['solo', 'solo-batcher', 'batched',
+                                  'volume', 'cohort', 'cohortpad'])
+def test_each_fetch_is_one_span_with_its_bytes(models, one_thread,
+                                               monkeypatch, case, compact):
+    """Each program result is fetched in one ``engine.fetch`` span, whose
+    byte count is what ``wire.to_host`` copied of the masks wire (uint8;
+    the volume program's float projection is not masks)."""
+    batcher = {'solo-batcher': 1, 'batched': 2}.get(case)
+    engine = _port(models, compact_wire=compact, auto_batch=batcher)
+    moved, to_host = [], wire.to_host
+
+    def spy(dev, *args, **kw):
+        host = to_host(dev, *args, **kw)
+        if host.dtype == np.uint8:
+            moved.append(host.nbytes)
+        return host
+
+    try:
+        vol = _small_ct()
+        _fetch_case(engine, case, vol)  # builds the programs
+        monkeypatch.setattr(wire, 'to_host', spy)
+        trace.enable()
+        try:
+            n = _fetch_case(engine, case, vol)
+            spans = [s for s in trace.collect() if s.name == 'engine.fetch']
+        finally:
+            trace.disable()
+        if batcher:
+            occupancy = engine._batcher.stats()['batch_occupancy']
+            assert occupancy[-1] == (2 if case == 'batched' else 4)
+    finally:
+        engine.close()
+    assert len(spans) == n
+    assert all(s.nbytes > 0 for s in spans)
+    assert sum(s.nbytes for s in spans) == sum(moved)

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from totalsegmentator2d_tpu.inference import ensemble_engine as J
-from totalsegmentator2d_tpu_torch.inference import ensemble_engine as P
-from totalsegmentator2d_tpu_torch.inference.program import _wire_restore
+from totalsegmentator2d_tpu_torch.inference import wire as P
+from totalsegmentator2d_tpu_torch.inference.wire import _wire_restore
 
 
 def _channels(rng, kind, shape=(23, 17)):

@@ -18,7 +18,7 @@ from tests.result_chain import check_result_against_chain
 from tests.model_fixtures import build_group_set
 from tests.torch_mirror import TorchPlainConvUNet, make_spec
 from totalsegmentator2d_tpu_torch.api import TS2D
-from totalsegmentator2d_tpu_torch.inference import ensemble_engine
+from totalsegmentator2d_tpu_torch.inference import wire
 from totalsegmentator2d_tpu_torch.io import MedicalImage
 from totalsegmentator2d_tpu_torch.ops.annotations import get_annotation_meta
 from totalsegmentator2d_tpu_torch.utils import trace
@@ -197,16 +197,16 @@ def test_result_arrays_are_the_numpy_chain(root, monkeypatch, batching,
 @pytest.fixture
 def fetched(monkeypatch):
     """Bytes copied to the host by the engine's fetches (every fetch of
-    a result goes through ``ensemble_engine.to_host``)."""
+    a result goes through ``wire.to_host``)."""
     got, lock = [], threading.Lock()
-    to_host = ensemble_engine.to_host
+    to_host = wire.to_host
 
     def spy(dev, *args, **kw):
         host = to_host(dev, *args, **kw)
         with lock:
             got.append(host.nbytes)
         return host
-    monkeypatch.setattr(ensemble_engine, 'to_host', spy)
+    monkeypatch.setattr(wire, 'to_host', spy)
     return got
 
 

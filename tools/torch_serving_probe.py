@@ -64,13 +64,21 @@ serving = hasattr(EnsembleEngine, 'predict_array_async')
 
 
 def set_streams(streams):
-    """The download streams of fetch_split's default and _BatchResult."""
-    from totalsegmentator2d_tpu_torch.inference import ensemble_engine
-    from totalsegmentator2d_tpu_torch.inference.batching import _BatchResult
-    defaults = list(ensemble_engine.fetch_split.__defaults__)
+    """The download streams of fetch_split's default and the fetch-once
+    result's (inference/wire.py; a checkout without it keeps them in
+    ensemble_engine.py and batching.py)."""
+    try:
+        from totalsegmentator2d_tpu_torch.inference.wire import (
+            DeviceResult as result, fetch_split)
+    except ImportError:
+        from totalsegmentator2d_tpu_torch.inference.batching import (
+            _BatchResult as result)
+        from totalsegmentator2d_tpu_torch.inference.ensemble_engine import (
+            fetch_split)
+    defaults = list(fetch_split.__defaults__)
     defaults[1] = streams
-    ensemble_engine.fetch_split.__defaults__ = tuple(defaults)
-    _BatchResult._SPLIT_STREAMS = streams
+    fetch_split.__defaults__ = tuple(defaults)
+    result._SPLIT_STREAMS = streams
 
 
 def measure(label, engine, streams=None):
@@ -111,7 +119,9 @@ def measure_batch(label, engine):
         t0 = time.perf_counter()
         handles = [engine.predict_array_async(a, spacing) for a in arrs]
         t1 = time.perf_counter()
-        br = handles[0][1].result()[0]
+        # the batcher's future (a tuple ('future', future) before wire.py)
+        first = handles[0][1] if isinstance(handles[0], tuple) else handles[0]
+        br = first.result()[0]
         t2 = time.perf_counter()
         br.get()
         t3 = time.perf_counter()

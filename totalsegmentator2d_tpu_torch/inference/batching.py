@@ -18,8 +18,8 @@ a burst ramp, ``min_fill``, ``linger_ms`` and a reorder for a full batch
 of another key decide when a batch goes (see :class:`DynamicBatcher`).
 
 Threads: the dispatcher launches the programs, one watcher per program
-pre-fetches its result to the host; both run under
-``torch.inference_mode`` (grad mode is per thread) and launch on the
+pre-fetches its result to the host (``wire.DeviceResult.get``); both run
+under ``torch.inference_mode`` (grad mode is per thread) and launch on the
 default stream, and the download waits on the event recorded right after
 its program, not on the programs launched after it. Each scan's wait in
 the queue, each program's dispatch and each fetch is a span of
@@ -38,74 +38,20 @@ import torch
 
 from ..utils import trace
 from ..utils.logging import log, warn
-
-
-class _BatchResult:
-    """Fetch-once holder for a dispatched program's device output: the
-    first consumer (the watcher, normally) downloads it; the rest read the
-    cached host copy.
-
-    A large plain result can download as a fixed number of contiguous
-    slabs along axis 0 on concurrent copy streams (never per row: a solo
-    output's axis 0 is the image height); their concatenation is
-    bit-identical to the whole array. The default is one stream: on the
-    card's PCIe link 4 slabs measured ~10x slower than one copy
-    (ensemble_engine.fetch_split). With a ``compact`` layout (the
-    default mask wire) the device value is a (buf, occupancy bitmap) pair
-    and only the occupied prefix is fetched (ensemble_engine.fetch_compact).
-    ``get`` returns the plain packed (B, H, W, nB) / (H, W, nB) array
-    either way. ``ready`` is the CUDA event recorded after the program.
-    """
-
-    # below this one copy is enough and the slab slices are not worth it
-    _SPLIT_MIN_BYTES = 1_000_000
-    _SPLIT_STREAMS = 1
-
-    def __init__(self, dev, compact: Optional[dict] = None, ready=None,
-                 scans: Tuple[int, ...] = ()):
-        self._dev = dev
-        self._compact = compact
-        self._ready = ready
-        self._scans = scans    # the scan ids it carries, for its span
-        self._np: Optional[np.ndarray] = None
-        self._lock = threading.Lock()
-
-    def get(self) -> np.ndarray:
-        with self._lock:
-            if self._np is None:
-                with torch.inference_mode(), trace.span('engine.fetch',
-                                                        scan=self._scans):
-                    if self._compact is not None:
-                        self._np = self._fetch_compacted()
-                    else:
-                        self._np = self._fetch_split(self._dev)
-                self._dev = None
-        return self._np
-
-    def _fetch_split(self, dev) -> np.ndarray:
-        from .ensemble_engine import fetch_split
-        host = fetch_split(dev, min_bytes=self._SPLIT_MIN_BYTES,
-                           streams=self._SPLIT_STREAMS, ready=self._ready)
-        trace.count_bytes(host.nbytes)
-        return host
-
-    def _fetch_compacted(self) -> np.ndarray:
-        from .ensemble_engine import fetch_compact, fetch_compact_batch
-        buf, _ = self._dev
-        if buf.ndim == 2:  # a solo program's output
-            return fetch_compact(self._dev, self._compact, self._ready)
-        return fetch_compact_batch(self._dev, self._compact, self._ready)
+from .program import spacing_key
+from .wire import DeviceResult, _wire_pack, plain_wire
 
 
 class DynamicBatcher:
     """Coalesces concurrent ``predict_array_async`` requests into batched
     programs. One daemon dispatcher thread; submissions return futures
-    resolving to ``(_BatchResult, index | None, bbox, full_shape)``.
+    resolving to ``(wire.DeviceResult, index | None, bbox, full_shape)``.
 
-    The engine gives ``_serving_program(shape, spacing, wire)`` and
-    ``_batched_program(max_batch, shape, spacing, has_mask, wire)``, each
-    -> (program, meta); a program takes the host payload (and mask) and
-    returns its device result without waiting for the card.
+    The engine gives ``_launch_solo(cropped, mask, spacing, wire)`` -> the
+    solo program's DeviceResult, and ``_batched_program(max_batch, shape,
+    spacing, has_mask, wire)`` -> (program, meta); a program takes the host
+    payload (and mask) and returns its device result without waiting for
+    the card.
     """
 
     def __init__(self, engine, max_batch: int = 8, linger_ms: float = 0.0,
@@ -164,14 +110,10 @@ class DynamicBatcher:
 
     def submit(self, cropped: np.ndarray, mask: Optional[np.ndarray],
                spacing, bbox, full, wire=None) -> Future:
-        if wire is not None and not any(wire):
-            wire = None
-        key = (cropped.shape[:2],
-               tuple(round(float(s), 6) for s in spacing),
-               mask is not None,
+        key = (cropped.shape[:2], spacing_key(spacing), mask is not None,
                # scans on different int16 wires run different programs and
                # must not co-batch
-               wire)
+               plain_wire(wire))
         fut: Future = Future()
         item = (cropped, mask, bbox, full, trace.stamp(), fut)
         with self._cv:
@@ -372,7 +314,7 @@ class DynamicBatcher:
                 if not isinstance(ex, Exception):
                     raise  # KeyboardInterrupt / SystemExit: die loudly
 
-    def _track(self, br: _BatchResult) -> None:
+    def _track(self, br: DeviceResult) -> None:
         """Count a dispatched program as in flight and pre-fetch its result
         from a watcher thread; the fetch's end is the idle signal, and by
         the time a consumer reads the result it is already on the host."""
@@ -405,8 +347,6 @@ class DynamicBatcher:
             self._dispatch_program(key, take)
 
     def _dispatch_program(self, key, take):
-        from .ensemble_engine import _wire_pack
-        from .program import ready_event
         engine = self.engine
         _, spacing, has_mask, wire = key
         # claim every future first: a caller that cancelled (a timed-out
@@ -417,41 +357,34 @@ class DynamicBatcher:
         B = len(take)
         if B == 1:
             # the solo program: no batched program for the sequential case
-            cropped, mask, bbox, full, _, fut = take[0]
-            fn, meta = engine._serving_program(cropped.shape[:2], spacing,
-                                               wire)
-            with trace.span('program.wire_pack'):
-                payload = _wire_pack(cropped, wire)
-            out = fn(payload, mask)
-            br = _BatchResult(out, compact=meta.get('compact'),
-                              ready=ready_event(out), scans=trace.scans())
-            self._track(br)
-            with self._cv:
-                self._occupancy[0] += 1
-            fut.set_result((br, None, bbox, full))
-            return
-        log(f'micro-batching engaged ({B} concurrent scans coalesced into '
-            f'one device program); results may differ from solo runs on '
-            f'borderline pixels - use batching=False / --no-batching for '
-            f'bitwise reproducibility', once=True)
-        fnb, meta = engine._batched_program(
+            result = engine._launch_solo(take[0][0], take[0][1], spacing, wire)
+        else:
+            log(f'micro-batching engaged ({B} concurrent scans coalesced into '
+                f'one device program); results may differ from solo runs on '
+                f'borderline pixels - use batching=False / --no-batching for '
+                f'bitwise reproducibility', once=True)
+            result = self._launch_batch(take, spacing, has_mask, wire)
+        self._track(result)
+        with self._cv:
+            self._occupancy[B - 1] += 1
+        for i, (_, _, bbox, full, _, fut) in enumerate(take):
+            fut.set_result((result, None if B == 1 else i, bbox, full))
+
+    def _launch_batch(self, take, spacing, has_mask, wire) -> DeviceResult:
+        """The batched program on the taken scans, padded to max_batch by
+        repeating the last one."""
+        fnb, meta = self.engine._batched_program(
             self.max_batch, take[0][0].shape[:2], spacing, has_mask, wire)
         compact = meta.get('compact')
-        pad = self.max_batch - B
+        B, pad = len(take), self.max_batch - len(take)
         with trace.span('program.wire_pack'):
             stacked = np.stack([it[0] for it in take] + [take[-1][0]] * pad)
             mb = (np.stack([it[1] for it in take] + [take[-1][1]] * pad)
                   if has_mask else None)
             payload = _wire_pack(stacked, wire)
         out = fnb(payload, mb)
-        if B < self.max_batch:
+        if pad:
             # drop the padding rows on the device: they are never fetched
             out = (tuple(o[:B] for o in out) if compact is not None
                    else out[:B])
-        br = _BatchResult(out, compact=compact, ready=ready_event(out),
-                          scans=trace.scans())
-        self._track(br)
-        with self._cv:
-            self._occupancy[B - 1] += 1
-        for i, (_, _, bbox, full, _, fut) in enumerate(take):
-            fut.set_result((br, i, bbox, full))
+        return DeviceResult(out, compact)

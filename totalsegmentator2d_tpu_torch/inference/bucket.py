@@ -45,8 +45,9 @@ from ..ops.normalize import normalize_channels
 from ..ops.resample import apply_separable, bspline_prefilter
 from ..utils import trace
 from ..utils.device import exact_numerics
-from .program import _mirror_combos, _wire_restore, compute_new_shape, upload
+from .program import _mirror_combos, compute_new_shape
 from .tiling import accumulate_tiles
+from .wire import _wire_restore, upload
 
 F32 = np.float32
 

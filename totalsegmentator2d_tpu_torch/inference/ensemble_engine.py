@@ -12,15 +12,11 @@ rounded to bf16 first, as the reference's fast ensemble stores them
 
 Serving, as in the reference package:
 
-- the **int16 wire**: exactly-integral channels (a CT's MIP) upload as
-  int16 and are cast back on the device, bit-identical
-  (:func:`wire_detect`, :func:`_wire_pack`, ``program._wire_restore``);
-- the **compact mask wire**: the program returns the packed masks'
-  nonzero 8-byte tiles compacted to a prefix plus an occupancy bitmap
-  (:func:`_compact_pack`); the host fetches the bitmap and only the prefix
-  its count needs (:func:`fetch_compact`), bit-identical to the plain wire;
-  each fetch counts the bytes it copied from the card into its enclosing
-  span, ``engine.fetch`` (utils/trace.py :func:`count_bytes`);
+- the **int16 input wire** and the **compact mask wire**
+  (inference/wire.py; the names the reference keeps in this module are
+  imported here): every program's masks are wrapped where they are
+  launched and fetched once, by ``wire.DeviceResult.get``, in the
+  ``engine.fetch`` span that counts the bytes copied from the card;
 - **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
   :meth:`~EnsembleEngine.finish_array`, or
   :meth:`~EnsembleEngine.finish_groups`, which unpacks, places and splits
@@ -51,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import threading
+from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,9 +62,17 @@ from ..ops.normalize import nonzero_norm_mask
 from ..ops.projection import project_array, project_arrays_np
 from ..utils.device import exact_numerics
 from ..utils import trace
-from ..utils.logging import log, warn
+from ..utils.logging import warn
+from .batching import DynamicBatcher
 from .bucket import BucketProgram
-from .program import ScanEngine, ready_event, to_host, upload
+from .program import ScanEngine, spacing_key
+from .wire import (DeviceResult, _compact_meta, _compact_pack, _pack_bits,
+                   _wire_pack, plain_wire, ready_event, to_host, unpack_bits,
+                   upload, wire_detect)
+# the wire's public names that the reference keeps in its module of this name
+from .wire import (fetch_compact, fetch_compact_batch,  # noqa: F401
+                   fetch_split, occupied_count, pick_prefix, prefix_buckets,
+                   uncompact)
 
 
 def pad_head(params: Dict[str, torch.Tensor], n_labels: int,
@@ -84,267 +88,6 @@ def pad_head(params: Dict[str, torch.Tensor], n_labels: int,
         if k.startswith('decoder.seg_layers.'):
             out[k] = torch.cat([v, v.new_zeros((extra,) + v.shape[1:])])
     return out
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Pack a (..., L) 0/1 uint8 tensor into (..., ceil(L/8)) uint8, little
-    bit order (numpy ``np.unpackbits(..., bitorder='little')``)."""
-    L = bits.shape[-1]
-    Lpad = -(-L // 8) * 8
-    if Lpad != L:
-        bits = F.pad(bits, (0, Lpad - L))
-    grouped = bits.reshape(bits.shape[:-1] + (Lpad // 8, 8))
-    # a host list copied to the card: the copy waits for the work queued
-    # before it, so inside a program the host waits for the card here
-    with trace.span('program.sync'):
-        weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
-                               dtype=torch.uint8, device=bits.device)
-    return (grouped * weights).sum(dim=-1, dtype=torch.uint8)
-
-
-def unpack_bits(packed: np.ndarray, n_labels: int) -> np.ndarray:
-    """Host-side inverse of :func:`_pack_bits`."""
-    packed = np.ascontiguousarray(packed)
-    bits = np.unpackbits(packed.reshape(-1), bitorder='little')
-    bits = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 8,))
-    return bits[..., :n_labels]
-
-
-# -- compact mask wire: ship only the nonzero tiles of the packed masks ------
-#
-# Per-label foreground is a few percent of a projection on real anatomy, so
-# most packed bytes are zero. The program cuts the packed bytes, plane by
-# plane (a label byte-plane's support is spatially local, so its tiles go
-# zero together), into tiles of _COMPACT_TILE bytes and moves the occupied
-# ones to a dense prefix by cumsum positions (no sort, no host sync); the
-# host fetches the occupancy bitmap, whose popcount sizes a bucketed prefix
-# of the buffer, and only that prefix. The bucket the last result of the
-# same program needed is fetched speculatively beside the bitmap.
-
-_COMPACT_TILE = 8
-# the host rebuild moves each 8-byte tile as one uint64: a 1-D boolean
-# scatter of words is several times faster than one of 8-byte rows
-_TILE_WORD = np.uint64
-
-
-def _compact_meta(h: int, w: int, n_bytes: int) -> dict:
-    total = h * w * n_bytes
-    return {'shape': (h, w, n_bytes), 'T': -(-total // _COMPACT_TILE)}
-
-
-def prefix_buckets(T: int) -> Tuple[int, ...]:
-    """Fetchable prefix lengths (occupied-tile counts round up to one of
-    these): fixed fractions of the tile count."""
-    return tuple(sorted({max(1, -(-T // 16)), -(-T // 8), -(-T // 4),
-                         -(-T // 2), T + 1}))
-
-
-def pick_prefix(count: int, T: int) -> int:
-    for b in prefix_buckets(T):
-        if b >= count:
-            return b
-    return T + 1  # pragma: no cover - the last bucket always covers
-
-
-def _compact_pack(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Device side: (..., H, W, nB) bit-packed masks -> (buf, occ): ``buf``
-    (..., T+1, _COMPACT_TILE) uint8 with the occupied plane-major tiles in
-    a dense prefix and every other row zero, ``occ`` the packed tile
-    occupancy bitmap (..., ceil(T/8)).
-
-    An index scatter, then a row gather: every unoccupied tile scatters its
-    index to the trash row T, so which one lands there depends on the order
-    of a duplicate-index scatter (unspecified on a card), but every
-    candidate is an all-zero tile (occupied means nonzero), so the trash
-    row, and the whole buffer, are the same whatever the order."""
-    lead = tuple(packed.shape[:-3])
-    flat = packed.movedim(-1, -3).reshape(lead + (-1,))
-    pad = (-flat.shape[-1]) % _COMPACT_TILE
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    tiles = flat.reshape(lead + (-1, _COMPACT_TILE))
-    T = tiles.shape[-2]
-    occ = (tiles != 0).any(dim=-1)
-    pos = torch.cumsum(occ, dim=-1) - 1
-    idx = torch.where(occ, pos, T)
-    src = torch.full(lead + (T + 1,), T, dtype=torch.long,
-                     device=packed.device)
-    src.scatter_(-1, idx, torch.arange(T, device=packed.device)
-                 .expand(lead + (T,)))
-    tiles_p = torch.cat([tiles, tiles.new_zeros(lead + (1, _COMPACT_TILE))],
-                        dim=-2)
-    buf = torch.gather(tiles_p, -2,
-                       src[..., None].expand(lead + (T + 1, _COMPACT_TILE)))
-    return buf, _pack_bits(occ.to(torch.uint8))
-
-
-def occupied_count(occ_packed: np.ndarray, T: int) -> int:
-    """Occupied-tile count from the fetched bitmap (host side)."""
-    bits = np.unpackbits(np.ascontiguousarray(occ_packed).reshape(-1),
-                         bitorder='little')
-    return int(bits[:T].sum())
-
-
-def uncompact(prefix: np.ndarray, occ_packed: np.ndarray, count: int,
-              shape: Tuple[int, int, int]) -> np.ndarray:
-    """Host side: rebuild the (H, W, nB) packed-mask array from a fetched
-    buffer prefix (length >= count) and the occupancy bitmap. Bit-identical
-    to the plain wire."""
-    h, w, n_bytes = shape
-    total = h * w * n_bytes
-    T = -(-total // _COMPACT_TILE)
-    occ = np.unpackbits(np.ascontiguousarray(occ_packed).reshape(-1),
-                        bitorder='little')[:T].astype(bool)
-    out = np.zeros(T, _TILE_WORD)
-    out[occ] = _words(prefix[:count])
-    planes = out.view(np.uint8)[:total].reshape(n_bytes, h, w)
-    return np.ascontiguousarray(planes.transpose(1, 2, 0))
-
-
-def _words(tiles: np.ndarray) -> np.ndarray:
-    """(n, _COMPACT_TILE) uint8 tiles as n tile words."""
-    return np.ascontiguousarray(tiles).view(_TILE_WORD).reshape(-1)
-
-
-_fetch_pools: Dict[str, object] = {}
-_fetch_pool_lock = threading.Lock()
-
-
-def _fetch_pool(kind: str, workers: int):
-    """Shared thread pools for result downloads: the fetch paths run once
-    per scan in the serving loop. 'slab' tasks never submit into a pool
-    and 'spec' tasks only into 'slab', so they cannot deadlock."""
-    with _fetch_pool_lock:
-        pool = _fetch_pools.get(kind)
-        if pool is None:
-            from concurrent.futures import ThreadPoolExecutor
-            pool = ThreadPoolExecutor(
-                workers, thread_name_prefix=f'ts2d-fetch-{kind}')
-            _fetch_pools[kind] = pool
-        return pool
-
-
-def fetch_split(dev, min_bytes: int = 1_000_000, streams: int = 1,
-                ready=None) -> np.ndarray:
-    """Fetch a device array as ``streams`` concurrent contiguous slabs
-    along axis 0, each on its own copy stream; the concatenated slabs are
-    bit-identical to the whole array. Arrays under ``min_bytes``, or with
-    fewer than two rows, take one copy. ``ready``: the event after the
-    program (:func:`~.program.ready_event`). One stream by default: the
-    reference's 4 slabs aggregate a remote tunnel's streams, but a card on
-    PCIe fills the link with one copy, and 4 slabs measured ~10x slower
-    (PERF.md)."""
-    n = dev.shape[0] if getattr(dev, 'ndim', 0) >= 1 else 0
-    if n >= 2 and streams > 1 and dev.nbytes >= min_bytes:
-        k = min(streams, n)
-        bounds = [n * i // k for i in range(k + 1)]
-        slabs = [(dev[bounds[i]:bounds[i + 1]], i) for i in range(k)]
-        # 8 workers: two fetch_split calls can run at once (a speculative
-        # prefix beside another program's result)
-        parts = list(_fetch_pool('slab', 8).map(
-            lambda s: to_host(s[0], ready, s[1]), slabs))
-        return np.concatenate(parts)
-    return to_host(dev, ready)
-
-
-def _fetch_speculative(occ, spec_thunk, ready=None):
-    """Fetch the occupancy bitmap, with an optional speculative prefix fetch
-    running beside it. Returns ``(occ_np, speculative_result_or_None)``."""
-    if spec_thunk is None:
-        return to_host(occ, ready), None
-    spec = _fetch_pool('spec', 2).submit(spec_thunk)
-    occ_np = to_host(occ, ready)
-    with trace.span('engine.device_wait'):
-        return occ_np, spec.result()
-
-
-def fetch_compact(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
-    """Fetch a compacted solo result: the occupancy bitmap, plus only the
-    bucketed prefix its count needs. The bucket the last solo result of
-    this program needed (``cmeta['hint_solo']``; the batched fetch keeps
-    its own ``hint_batch``) is fetched beside the bitmap; when it does not
-    cover the new count, the covering bucket is fetched whole. Always
-    bit-identical: :func:`uncompact` reads exactly ``prefix[:count]``."""
-    buf, occ = dev_pair
-    T = cmeta['T']
-    hint = cmeta.get('hint_solo')
-    occ_np, prefix = _fetch_speculative(
-        occ, (lambda: fetch_split(buf[:hint], ready=ready)) if hint else None,
-        ready)
-    fetched = occ_np.nbytes + (prefix.nbytes if prefix is not None else 0)
-    count = occupied_count(occ_np, T)
-    k = pick_prefix(count, T)
-    if prefix is None or count > hint:
-        prefix = fetch_split(buf[:k], ready=ready)
-        fetched += prefix.nbytes
-    cmeta['hint_solo'] = k
-    trace.count_bytes(fetched)
-    return uncompact(prefix, occ_np, count, cmeta['shape'])
-
-
-def fetch_compact_batch(dev_pair, cmeta: dict, ready=None) -> np.ndarray:
-    """Fetch a batch of compacted results ((B, T+1, tile) buffer, (B, occB)
-    bitmaps): one prefix slab sized by the largest per-scan count, then one
-    vectorized scatter per batch. Speculation as in :func:`fetch_compact`
-    (own ``hint_batch`` slot). Returns the plain packed (B, H, W, nB)
-    array, bit-identical to the plain wire."""
-    buf, occ = dev_pair
-    T = cmeta['T']
-    h, w, n_bytes = cmeta['shape']
-    hint = cmeta.get('hint_batch')
-    occ_np, slab = _fetch_speculative(
-        occ, (lambda: fetch_split(buf[:, :hint], ready=ready)) if hint
-        else None, ready)
-    fetched = occ_np.nbytes + (slab.nbytes if slab is not None else 0)
-    bits = np.unpackbits(np.ascontiguousarray(occ_np), axis=-1,
-                         bitorder='little')[:, :T].astype(bool)
-    counts = bits.sum(axis=-1)
-    kmax = pick_prefix(int(counts.max()), T)
-    if slab is None or int(counts.max()) > hint:
-        slab = fetch_split(buf[:, :kmax], ready=ready)
-        fetched += slab.nbytes
-    cmeta['hint_batch'] = kmax
-    trace.count_bytes(fetched)
-    B = slab.shape[0]
-    out = np.zeros((B, T), _TILE_WORD)
-    out[bits] = _words(np.concatenate([slab[i, :counts[i]] for i in range(B)]))
-    total = h * w * n_bytes
-    planes = out.view(np.uint8)[:, :total].reshape(B, n_bytes, h, w)
-    return np.ascontiguousarray(planes.transpose(0, 2, 3, 1))
-
-
-# -- int16 wire: exactly-integral channels upload at half width -------------
-#
-# CT MIP channels (and integer X-rays) hold exactly-integral float values,
-# which an int16 carries losslessly at half the bytes; the device casts back
-# to float before normalization, so results are bit-identical to the
-# float32 wire. The AIP (mean) channel is fractional and stays float32.
-
-
-def wire_detect(arr: np.ndarray) -> Tuple[bool, ...]:
-    """Per-channel int16 eligibility of a float (H, W, C) array: every
-    value integral and within int16 range. NaN/inf fail the equality and
-    land on the float32 wire."""
-    wire = []
-    for c in range(arr.shape[-1]):
-        ch = arr[..., c]
-        wire.append(bool(ch.size and np.all(np.trunc(ch) == ch)
-                         and ch.min() >= -32768 and ch.max() <= 32767))
-    return tuple(wire)
-
-
-def _wire_pack(arr: np.ndarray, wire) -> object:
-    """Split (..., C) float32 into the wire payload: the int16 channels
-    and the float32 channels as two arrays (int channels first). All-float
-    wires return the array unchanged; all-int wires return a 1-tuple."""
-    if wire is None or not any(wire):
-        return np.ascontiguousarray(arr, np.float32)
-    ii = [c for c, w in enumerate(wire) if w]
-    ff = [c for c, w in enumerate(wire) if not w]
-    xi = np.ascontiguousarray(arr[..., ii]).astype(np.int16)
-    if not ff:
-        return (xi,)
-    return (xi, np.ascontiguousarray(arr[..., ff], np.float32))
 
 
 def _nonzero_range(vol: np.ndarray, axis: int):
@@ -463,7 +206,6 @@ class EnsembleEngine(ScanEngine):
                 row.append(self._load_net(arch, sd))
             self.models.append(row)
         if auto_batch is not None:
-            from .batching import DynamicBatcher
             self._batcher = DynamicBatcher(self, max_batch=auto_batch)
 
     def close(self) -> None:
@@ -549,39 +291,26 @@ class EnsembleEngine(ScanEngine):
         return program, meta
 
     def _program_bucket(self, bucket, in_spacing, wire=None):
-        if wire is not None and not any(wire):
-            wire = None
-        key = ('bucket', tuple(bucket),
-               tuple(round(float(s), 6) for s in in_spacing), wire)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                with trace.span('program.build'):
-                    hit = self._build_bucket(tuple(bucket), tuple(in_spacing),
-                                             wire)
-                self._cache[key] = hit
-                log(f'prepared bucket serving program for bucket={key[1]} '
-                    f'(q={self.pad_quantum}, <= {hit[1]["n_tiles_max"]} '
-                    f'tiles' + (f', int16 wire {wire}' if wire else '') + ')')
-        return hit
+        wire = plain_wire(wire)
+        return self._cached(
+            ('bucket', tuple(bucket), spacing_key(in_spacing), wire),
+            lambda: self._build_bucket(tuple(bucket), tuple(in_spacing), wire),
+            lambda hit: f'prepared bucket serving program for bucket='
+            f'{tuple(bucket)} (q={self.pad_quantum}, <= '
+            f'{hit[1]["n_tiles_max"]} tiles'
+            + (f', int16 wire {wire}' if wire else '') + ')')
 
     def _program_padded(self, in_shape, in_spacing, wire=None):
         """The masked program: normalization statistics from an explicit
         valid-extent mask instead of the whole array, for the padded
         mixed-shape cohorts."""
-        if wire is not None and not any(wire):
-            wire = None
-        key = ('2d-masked', tuple(in_shape),
-               tuple(round(float(s), 6) for s in in_spacing), wire)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                hit = self._build(tuple(in_shape), tuple(in_spacing), wire,
-                                  force_norm_mask=True)
-                self._cache[key] = hit
-                log(f'prepared masked ensemble program for shape={key[1]}'
-                    + (f', int16 wire {wire}' if wire else ''))
-        return hit
+        wire = plain_wire(wire)
+        return self._cached(
+            ('2d-masked', tuple(in_shape), spacing_key(in_spacing), wire),
+            lambda: self._build(tuple(in_shape), tuple(in_spacing), wire,
+                                force_norm_mask=True),
+            lambda _: f'prepared masked ensemble program for shape='
+            f'{tuple(in_shape)}' + (f', int16 wire {wire}' if wire else ''))
 
     def _serving_program(self, in_shape, in_spacing, wire=None):
         """The program predict_array dispatches: the bucket program under
@@ -596,25 +325,18 @@ class EnsembleEngine(ScanEngine):
         one (bucket) shape (the micro-batching dispatch path): (program,
         meta), where meta is the solo program's, shared, so the compact
         wire's hints live in one dict."""
-        if wire is not None and not any(wire):
-            wire = None
-        key = ('batch', int(batch), tuple(in_shape),
-               tuple(round(float(s), 6) for s in in_spacing), bool(has_mask),
-               wire, self.pad_quantum is not None)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                _, meta = self._serving_program(in_shape, in_spacing, wire)
-                build = (self._build_bucket if self.pad_quantum is not None
-                         else self._build)
-                with trace.span('program.build'):
-                    fn, _ = build(tuple(in_shape), tuple(in_spacing), wire,
-                                  batch=int(batch))
-                hit = self._cache[key] = (fn, meta)
-                log(f'prepared batched ensemble program for shape='
-                    f'{tuple(in_shape)} batch={batch}'
-                    + (' (bucket)' if self.pad_quantum is not None else ''))
-        return hit
+        wire = plain_wire(wire)
+        bucketed = self.pad_quantum is not None
+        _, meta = self._serving_program(in_shape, in_spacing, wire)
+        build = self._build_bucket if bucketed else self._build
+        return self._cached(
+            ('batch', int(batch), tuple(in_shape), spacing_key(in_spacing),
+             bool(has_mask), wire, bucketed),
+            lambda: (build(tuple(in_shape), tuple(in_spacing), wire,
+                           batch=int(batch))[0], meta),
+            lambda _: f'prepared batched ensemble program for shape='
+            f'{tuple(in_shape)} batch={batch}' + (' (bucket)' if bucketed
+                                                  else ''))
 
     # -- host API ------------------------------------------------------------
 
@@ -641,30 +363,34 @@ class EnsembleEngine(ScanEngine):
         with trace.span('engine.wire'):
             wire = wire_detect(cropped)
         if self._batcher is not None:
-            return ('future',
-                    self._batcher.submit(cropped, mask, spacing_yx, bbox,
-                                         arr.shape[:2], wire))
+            return self._batcher.submit(cropped, mask, spacing_yx, bbox,
+                                        arr.shape[:2], wire)
+        return (self._launch_solo(cropped, mask, spacing_yx, wire), None,
+                bbox, arr.shape[:2])
+
+    def _launch_solo(self, cropped: np.ndarray, mask, spacing_yx,
+                     wire) -> DeviceResult:
+        """The serving program on one cropped scan, launched without
+        waiting for the card (on the caller's thread, or the batcher's for
+        a lone request)."""
         fn, meta = self._serving_program(cropped.shape[:2], spacing_yx, wire)
         with trace.span('program.wire_pack'):
             payload = _wire_pack(cropped, wire)
-        out = fn(payload, mask)
-        return (out, bbox, arr.shape[:2], meta.get('compact'),
-                ready_event(out))
+        return DeviceResult(fn(payload, mask), meta.get('compact'))
 
     def _wait_packed(self, handle):
-        """Wait for a :meth:`predict_array_async` handle: (the scan's packed
-        masks on the host, its bbox, the full (H, W))."""
-        if handle[0] == 'future':
+        """Wait for a :meth:`predict_array_async` handle, (DeviceResult,
+        the scan's row in it or None, bbox, full (H, W)) or the batcher's
+        future of one: (the scan's packed masks on the host, its bbox, the
+        full (H, W))."""
+        if isinstance(handle, Future):
             with trace.span('engine.wait'):
-                batch_result, idx, bbox, full = handle[1].result()
-                packed = batch_result.get()
-            if idx is not None:
-                packed = packed[idx]
+                result, idx, bbox, full = handle.result()
+                packed = result.get()
         else:
-            out, bbox, full, cmeta, ready = handle
-            with trace.span('engine.fetch'):
-                packed = self._fetch_packed(out, cmeta, ready)
-        return packed, bbox, full
+            result, idx, bbox, full = handle
+            packed = result.get()
+        return (packed if idx is None else packed[idx]), bbox, full
 
     def finish_array(self, handle) -> np.ndarray:
         """Wait for a :meth:`predict_array_async` handle; returns the
@@ -699,20 +425,6 @@ class EnsembleEngine(ScanEngine):
             return (np.ascontiguousarray(seg) if merge else None,
                     [np.ascontiguousarray(seg[..., a:b])
                      for a, b in zip(ends[:-1], ends[1:])])
-
-    def _fetch_masks(self, out, cmeta, ready, batch=False) -> np.ndarray:
-        """A program's device masks as unpacked host masks."""
-        return unpack_bits(self._fetch_packed(out, cmeta, ready, batch),
-                           self.total_labels)
-
-    def _fetch_packed(self, out, cmeta, ready, batch=False) -> np.ndarray:
-        """A program's device masks as packed host masks."""
-        if cmeta is not None:
-            return (fetch_compact_batch if batch else fetch_compact)(
-                out, cmeta, ready)
-        packed = to_host(out, ready)
-        trace.count_bytes(packed.nbytes)
-        return packed
 
     def predict_array(self, arr: np.ndarray, spacing_yx: Sequence[float]
                       ) -> np.ndarray:
@@ -813,19 +525,13 @@ class EnsembleEngine(ScanEngine):
             bbox = ((0, vol.shape[0]), (0, vol.shape[2]))
         (z0, z1), (x0, x1) = bbox
         cropped = vol[z0:z1, :, x0:x1]
-        key = ('vol', cropped.shape,
-               tuple(round(float(s), 6) for s in spacing_yx), modes)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                hit = self._build_volume(tuple(cropped.shape),
-                                         tuple(spacing_yx), modes)
-                self._cache[key] = hit
-                log(f'prepared volume program for shape={cropped.shape}')
-        fn, cmeta = hit
+        fn, cmeta = self._cached(
+            ('vol', cropped.shape, spacing_key(spacing_yx), modes),
+            lambda: self._build_volume(tuple(cropped.shape),
+                                       tuple(spacing_yx), modes),
+            lambda _: f'prepared volume program for shape={cropped.shape}')
         masks, proj = fn(cropped)
-        return ('device', masks, proj, bbox, full_zx, cmeta,
-                ready_event(proj))
+        return ('device', DeviceResult(masks, cmeta), proj, bbox, full_zx)
 
     def finish_volume(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         """Wait for a :meth:`predict_volume_async` handle; returns (merged
@@ -833,9 +539,9 @@ class EnsembleEngine(ScanEngine):
         if handle[0] == 'hostproj':
             _, inner, proj = handle
             return self.finish_array(inner), proj
-        _, masks, proj_d, bbox, full_zx, cmeta, ready = handle
-        seg_c = self._fetch_masks(masks, cmeta, ready)
-        proj_c = to_host(proj_d, ready)
+        _, result, proj_d, bbox, full_zx = handle
+        seg_c = unpack_bits(result.get(), self.total_labels)
+        proj_c = to_host(proj_d, result.ready)
         (z0, z1), (x0, x1) = bbox
         if seg_c.shape[:2] == full_zx:
             return seg_c, proj_c
@@ -928,19 +634,13 @@ class EnsembleEngine(ScanEngine):
 
     def _cohort_packed(self, vols, spacing_yx, modes, mkey) -> np.ndarray:
         """One batched cohort program's packed host masks."""
-        key = ('cohort', vols.shape,
-               tuple(round(float(s), 6) for s in spacing_yx), modes, mkey)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                hit = self._build_cohort(vols.shape[0], tuple(vols.shape[1:]),
-                                         tuple(spacing_yx), modes)
-                self._cache[key] = hit
-                log(f'prepared cohort program for batch={vols.shape[0]} '
-                    f'shape={vols.shape[1:]}')
-        fn, cmeta = hit
-        out = fn(vols)
-        return self._fetch_packed(out, cmeta, ready_event(out), batch=True)
+        fn, cmeta = self._cached(
+            ('cohort', vols.shape, spacing_key(spacing_yx), modes, mkey),
+            lambda: self._build_cohort(vols.shape[0], tuple(vols.shape[1:]),
+                                       tuple(spacing_yx), modes),
+            lambda _: f'prepared cohort program for batch={vols.shape[0]} '
+            f'shape={vols.shape[1:]}')
+        return DeviceResult(fn(vols), cmeta).get()
 
     def _build_cohort_padded(self, n: int, vol_shape: Tuple[int, int, int],
                              spacing_yx: Tuple[float, float],
@@ -1034,8 +734,7 @@ class EnsembleEngine(ScanEngine):
         q = 1 if bucket == 'exact' else max(1, int(pad_quantum))
         groups: Dict[Tuple, list] = {}
         for i, (v, sp) in enumerate(zip(vols, sps)):
-            key = (tuple(-(-d // q) * q for d in v.shape),
-                   tuple(round(float(s), 6) for s in sp))
+            key = (tuple(-(-d // q) * q for d in v.shape), spacing_key(sp))
             groups.setdefault(key, []).append(i)
         for (shape, sp), idxs in sorted(groups.items()):
             if bucket == 'exact':
@@ -1070,17 +769,12 @@ class EnsembleEngine(ScanEngine):
 
     def _cohort_padded_packed(self, vols, exts, spacing_yx, modes, mkey
                               ) -> np.ndarray:
-        key = ('cohortpad', vols.shape,
-               tuple(round(float(s), 6) for s in spacing_yx), modes, mkey)
-        with self._cache_lock:
-            hit = self._cache.get(key)
-            if hit is None:
-                hit = self._build_cohort_padded(vols.shape[0],
-                                                tuple(vols.shape[1:]),
-                                                tuple(spacing_yx), modes)
-                self._cache[key] = hit
-                log(f'prepared padded cohort program for '
-                    f'batch={vols.shape[0]} bucket={vols.shape[1:]}')
-        fn, cmeta = hit
-        out = fn(vols, exts)
-        return self._fetch_packed(out, cmeta, ready_event(out), batch=True)
+        """One padded bucket's batched program: its packed host masks."""
+        fn, cmeta = self._cached(
+            ('cohortpad', vols.shape, spacing_key(spacing_yx), modes, mkey),
+            lambda: self._build_cohort_padded(vols.shape[0],
+                                              tuple(vols.shape[1:]),
+                                              tuple(spacing_yx), modes),
+            lambda _: f'prepared padded cohort program for '
+            f'batch={vols.shape[0]} bucket={vols.shape[1:]}')
+        return DeviceResult(fn(vols, exts), cmeta).get()

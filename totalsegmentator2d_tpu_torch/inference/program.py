@@ -13,7 +13,7 @@ under ``torch.inference_mode`` in whatever thread calls it. With
 reference's "fast" precision).
 
 A program takes host arrays: the input (or its int16 wire payload, see
-ensemble_engine.wire_detect) and the normalization mask. It uploads them
+wire.wire_detect) and the normalization mask. It uploads them
 through pinned memory without blocking and returns the device result
 without waiting for it, so the host can prepare the next scan while the
 card runs this one. The batched program (``batch=B``) is the solo program
@@ -45,6 +45,7 @@ from ..utils.device import exact_numerics, hold_exact_numerics, resolve_device
 from ..utils.logging import log
 from .tiling import (accumulate_tiles, accumulate_tiles_sharded, pad_amounts,
                      padded_shape, tile_positions)
+from .wire import _wire_restore, plain_wire, ready_event, to_host, upload
 
 
 def _mirror_combos(axes: Sequence[int]) -> List[Tuple[int, ...]]:
@@ -63,6 +64,12 @@ def compute_new_shape(shape: Sequence[int], old_spacing: Sequence[float],
                  for n, o, s in zip(shape, old_spacing, new_spacing))
 
 
+def spacing_key(spacing: Sequence[float]) -> Tuple[float, ...]:
+    """A spacing as the program caches and the batcher's queue key it:
+    each value rounded to 6 places."""
+    return tuple(round(float(s), 6) for s in spacing)
+
+
 def _nonzero_bbox(arr: np.ndarray) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """Bounding box of non-zero pixels over all channels; the full image if
     everything is zero."""
@@ -72,89 +79,6 @@ def _nonzero_bbox(arr: np.ndarray) -> Tuple[Tuple[int, int], Tuple[int, int]]:
         return (0, arr.shape[0]), (0, arr.shape[1])
     return ((int(ys.min()), int(ys.max()) + 1),
             (int(xs.min()), int(xs.max()) + 1))
-
-
-def _wire_restore(payload, wire, dtype=torch.float32) -> torch.Tensor:
-    """Device-side inverse of ``ensemble_engine._wire_pack``: cast, concat,
-    and restore the original channel order (nothing to reorder when the
-    int channels already lead, as the (MIP, AIP) = (int16, float32) CT
-    case). Any leading axes pass through."""
-    if wire is None or not any(wire):
-        return payload.to(dtype)
-    ii = [c for c, w in enumerate(wire) if w]
-    ff = [c for c, w in enumerate(wire) if not w]
-    parts = [payload[0].to(dtype)]
-    if ff:
-        parts.append(payload[1].to(dtype))
-    cat = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-    perm = np.argsort(np.asarray(ii + ff))
-    if np.array_equal(perm, np.arange(len(perm))):
-        return cat
-    return cat[..., torch.as_tensor(perm, device=cat.device)]
-
-
-def upload(arr: Optional[np.ndarray], device: torch.device):
-    """A host array (or a tuple of them) on the device. To a card it goes
-    through pinned memory without blocking: a copy from pageable memory
-    would wait for the work already queued on the stream."""
-    if arr is None:
-        return None
-    if isinstance(arr, tuple):
-        return tuple(upload(a, device) for a in arr)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != 'cuda':
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-def ready_event(out):
-    """A CUDA event recorded on the current stream after the work that
-    makes ``out`` (a tensor or a tuple of them): the fetch waits on it and
-    not on what is queued later. None for a result off the card."""
-    t = out[0] if isinstance(out, tuple) else out
-    if not isinstance(t, torch.Tensor) or t.device.type != 'cuda':
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(t.device))
-    return ev
-
-
-_fetch_streams: Dict[Tuple[int, int], object] = {}
-_fetch_streams_lock = threading.Lock()
-
-
-def _fetch_stream(device: torch.device, i: int):
-    key = (device.index if device.index is not None
-           else torch.cuda.current_device(), i)
-    with _fetch_streams_lock:
-        s = _fetch_streams.get(key)
-        if s is None:
-            s = _fetch_streams[key] = torch.cuda.Stream(device=key[0])
-        return s
-
-
-def to_host(dev, ready=None, stream_index: int = 0) -> np.ndarray:
-    """A device result on the host as a numpy array. A CUDA tensor is
-    copied into pinned memory on a side stream (``stream_index`` picks one
-    of several) that waits for ``ready`` (the event recorded after the
-    program), or, without one, for the work queued so far on the current
-    stream: the copy never queues behind programs launched after it."""
-    if not isinstance(dev, torch.Tensor):
-        return np.asarray(dev)
-    if dev.device.type != 'cuda':
-        return dev.numpy()
-    stream = _fetch_stream(dev.device, stream_index)
-    if ready is not None:
-        stream.wait_event(ready)
-    else:
-        stream.wait_stream(torch.cuda.current_stream(dev.device))
-    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-    with torch.cuda.stream(stream):
-        host.copy_(dev, non_blocking=True)
-        dev.record_stream(stream)
-    with trace.span('engine.device_wait'):
-        stream.synchronize()
-    return host.numpy()
 
 
 class ScanEngine:
@@ -357,29 +281,35 @@ class ScanEngine:
                 'raw': device_program}
         return program, meta
 
-    def _program(self, in_shape, in_spacing, wire=None, logits=False):
-        """The solo program for one cropped shape, spacing and input wire,
-        built once: (program, meta). ``logits``: its variant that also
-        returns the logits (:meth:`_build`), cached under its own key."""
-        if wire is not None and not any(wire):
-            wire = None  # the all-float wire is the plain program
-        key = (tuple(in_shape), tuple(round(float(s), 6) for s in in_spacing),
-               wire) + (('logits',) if logits else ())
+    def _cached(self, key: tuple, build, describe):
+        """The program cached under ``key``, built once: on a miss
+        ``build()`` runs in a ``program.build`` span and ``describe(hit)``
+        is logged. The lock is re-entrant: a build may build the program it
+        extends."""
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is None:
                 with trace.span('program.build'):
-                    hit = self._build(tuple(in_shape), tuple(in_spacing),
-                                      wire, with_logits=logits)
-                self._cache[key] = hit
-                log(f'prepared {self.kind} program for shape={key[0]} '
-                    f'({hit[1]["n_tiles"]} tiles, {hit[1]["n_mirror"]} '
-                    f'mirrors, {self.n_folds} folds, '
-                    f'{"fast" if self.compute_dtype else "exact"}, '
-                    f'{self.device}'
-                    + (f', int16 wire {wire}' if wire else '')
-                    + (', logits' if logits else '') + ')')
+                    hit = self._cache[key] = build()
+                log(describe(hit))
         return hit
+
+    def _program(self, in_shape, in_spacing, wire=None, logits=False):
+        """The solo program for one cropped shape, spacing and input wire,
+        built once: (program, meta). ``logits``: its variant that also
+        returns the logits (:meth:`_build`), cached under its own key."""
+        wire = plain_wire(wire)
+        key = (tuple(in_shape), spacing_key(in_spacing),
+               wire) + (('logits',) if logits else ())
+        return self._cached(
+            key, lambda: self._build(tuple(in_shape), tuple(in_spacing), wire,
+                                     with_logits=logits),
+            lambda hit: f'prepared {self.kind} program for shape={key[0]} '
+            f'({hit[1]["n_tiles"]} tiles, {hit[1]["n_mirror"]} mirrors, '
+            f'{self.n_folds} folds, '
+            f'{"fast" if self.compute_dtype else "exact"}, {self.device}'
+            + (f', int16 wire {wire}' if wire else '')
+            + (', logits' if logits else '') + ')')
 
     # -- host API -----------------------------------------------------------
 
