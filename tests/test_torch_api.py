@@ -11,9 +11,11 @@ intensity visuals within one gray level on every pixel and equal on
 softmax group, groups that disagree on precision) run on per-model engines
 in both packages."""
 
+import gc
 import json
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -26,10 +28,12 @@ from totalsegmentator2d_tpu.api import TS2D as JaxTS2D
 from totalsegmentator2d_tpu.io import read_image as jax_read_image
 from totalsegmentator2d_tpu_torch.api import TS2D
 from totalsegmentator2d_tpu_torch.cli import ts2d_entry_point
-from totalsegmentator2d_tpu_torch.io import read_image
+from totalsegmentator2d_tpu_torch.inference import ensemble_engine
+from totalsegmentator2d_tpu_torch.io import native, read_image
 from totalsegmentator2d_tpu_torch.ops.cuda.fused_block import \
     fused_norm_act_conv_cuda
 from totalsegmentator2d_tpu_torch.ops.cuda.prefilter import bspline_prefilter_cuda
+from totalsegmentator2d_tpu_torch.utils import trace
 
 KEY = 'ts2d-v9-test'
 
@@ -90,6 +94,167 @@ def test_result_arrays_are_the_numpy_chain(model_root, monkeypatch, variant):
     seg = res.get_segmentation(res.models[0])
     assert seg.array.shape[:-1] == ((133, 53) if variant == 'collapse'
                                     else (133, 1, 53))
+
+
+@pytest.fixture(scope='module')
+def wide_root(tmp_path_factory):
+    """The set with 11 labels: its masks pack into two bytes a pixel, a
+    layout the native pass takes (one byte a pixel comes back from the
+    fetch with a stride the pass does not read, and numpy assembles it)."""
+    root = str(tmp_path_factory.mktemp('wide'))
+    build_group_set(root, model=KEY, spacing=(1.2, 2.0), labels_per_group={
+        'cardiac': tuple(f'heart-{i}' for i in range(5)),
+        'ribs': tuple(f'rib-{i}' for i in range(6))})
+    return root
+
+
+def _mapping(a):
+    """The mapping under an array's chain of views, or None."""
+    while isinstance(a, np.ndarray):
+        a = a.base
+    return a if isinstance(a, native._Mapping) else None
+
+
+@pytest.mark.parametrize('batching', [False, True])
+def test_result_arrays_are_the_mapped_pages(wide_root, monkeypatch,
+                                            batching):
+    """The sample CT's Result masks, the numpy chain's, live in the pages
+    the engine's pages thread mapped while the scan ran, one mapping an
+    array, and the pass that wrote them is counted as prefaulted."""
+    image = read_image(asset_path('sample_s0521.nrrd'))
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)   # small arrays too
+    with TS2D(key=KEY, use_remote=False, local=wide_root, device='cpu',
+              batching=batching) as tool:
+        before = native.assembly_counts()['prefaulted']
+        res = check_result_against_chain(tool, image, monkeypatch)
+        assert native.assembly_counts()['prefaulted'] - before == 1
+    maps = [_mapping(res.get_segmentation(m).array)
+            for m in [None] + res.models]
+    assert None not in maps and len(set(map(id, maps))) == len(maps)
+
+
+def test_small_result_arrays_are_left_to_the_pass(wide_root, monkeypatch):
+    """A Result whose every array is under PAGES_MIN_BYTES (a CT's): the
+    dispatch gives the pages thread no job and the finish waits for none,
+    the pass allocates the arrays, the numpy chain's masks, and nothing is
+    counted as prefaulted."""
+    image = read_image(asset_path('sample_s0521.nrrd'))
+    released = _recording_mappings(monkeypatch)
+    with TS2D(key=KEY, use_remote=False, local=wide_root,
+              device='cpu') as tool:
+        before = native.assembly_counts()['prefaulted']
+        trace.enable()
+        try:
+            res = check_result_against_chain(tool, image, monkeypatch)
+        finally:
+            spans = trace.collect()
+            trace.disable()
+        assert native.assembly_counts()['prefaulted'] == before
+    assert released == []
+    assert not {'engine.pages', 'engine.pages_wait'} & {s.name
+                                                        for s in spans}
+    assert all(_mapping(res.get_segmentation(m).array) is None
+               for m in [None] + res.models)
+
+
+def _recording_mappings(monkeypatch):
+    """The finalizers of every mapping the pages jobs make from now on."""
+    released = []
+    make = ensemble_engine.map_mask_arrays
+
+    def spy(full, counts, merge):
+        got = make(full, counts, merge)
+        released.extend(a.base.released for a in [got[0], *got[1]]
+                        if a is not None)
+        return got
+    monkeypatch.setattr(ensemble_engine, 'map_mask_arrays', spy)
+    return released
+
+
+@pytest.mark.parametrize('job', ['ran', 'queued'])
+def test_a_failed_dispatch_releases_its_pages(wide_root, monkeypatch, job):
+    """A dispatch that raises after its pages job was submitted, whether
+    the job had mapped its arrays (they are dropped as soon as it ends,
+    even while the error's traceback lives) or was still queued (it never
+    runs): no mapping of it stays alive."""
+    image = read_image(asset_path('sample_s0521.nrrd'))
+    released = _recording_mappings(monkeypatch)
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
+    with TS2D(key=KEY, use_remote=False, local=wide_root, device='cpu',
+              batching=False) as tool:
+        engine = tool._fused
+        gate = threading.Event()
+        if job == 'queued':   # the pages thread is busy until the failure
+            engine._pager.submit(gate.wait, 30)
+
+        def fail(arr):
+            if job == 'ran':
+                engine._pager.submit(lambda: None).result(30)
+            raise RuntimeError('crop failed')
+        monkeypatch.setattr(engine, '_crop', fail)
+        with pytest.raises(RuntimeError, match='crop failed') as err:
+            tool.predict(image)
+        gate.set()
+        engine._pager.submit(lambda: None).result(30)
+        gc.collect()
+        assert err.value is not None    # the traceback is still held
+        assert len(released) == (1 + len(engine.output_label_counts)
+                                 if job == 'ran' else 0)
+        assert not any(f.alive for f in released)
+        # and its slot is free again
+        assert all(engine._pages_slots.acquire(blocking=False)
+                   for _ in range(ensemble_engine.PAGES_AHEAD))
+
+
+@pytest.mark.parametrize('freed', ['finished', 'dropped'])
+def test_pages_ahead_of_their_finish_are_capped(wide_root, monkeypatch,
+                                                freed):
+    """Scans dispatched past ``PAGES_AHEAD`` unfinished ones get no pages
+    job, and their pass allocates; a finish, or a handle dropped
+    unfinished, frees its slot for the next dispatch. Every Result's
+    masks are the same, mapped ahead or not."""
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
+    ahead = ensemble_engine.PAGES_AHEAD
+    rng = np.random.default_rng(4)
+    arr = np.zeros((133, 53, 2), np.float32)
+    arr[8:120, 5:50] = rng.normal(0, 300, (112, 45, 2))
+    with TS2D(key=KEY, use_remote=False, local=wide_root,
+              device='cpu') as tool:
+        engine = tool._fused
+        want = engine.finish_array(engine.predict_array_async(
+            arr, (1.2, 2.0)))
+        handles = [engine.predict_groups_async(arr, (1.2, 2.0))
+                   for _ in range(ahead + 1)]
+        assert [h.pages is not None for h in handles] == (
+            [True] * ahead + [False])
+        results = []
+        if freed == 'finished':
+            results.append(engine.finish_groups(handles.pop(0)))
+        else:
+            del handles[0]
+            gc.collect()
+        handles.append(engine.predict_groups_async(arr, (1.2, 2.0)))
+        assert handles[-1].pages is not None
+        assert engine.predict_groups_async(arr, (1.2, 2.0)).pages is None
+        results += [engine.finish_groups(h) for h in handles]
+        again = engine.predict_groups_async(arr, (1.2, 2.0))
+        assert again.pages is not None
+        results.append(engine.finish_groups(again))
+    assert want.any()
+    for merged, _ in results:
+        np.testing.assert_array_equal(merged, want)
+    mapped = [_mapping(merged) is not None for merged, _ in results]
+    assert mapped == [True] * (freed == 'finished') + [True] * (ahead - 1) \
+        + [False, True, True]
+
+
+def test_a_closed_engine_refuses_a_dispatch(wide_root):
+    with TS2D(key=KEY, use_remote=False, local=wide_root,
+              device='cpu') as tool:
+        engine = tool._fused
+    with pytest.raises(RuntimeError, match='closed'):
+        engine.predict_groups_async(np.zeros((8, 8, 2), np.float32),
+                                    (1.2, 2.0))
 
 
 def test_combine_segmentations_matches_reference_and_merge(results):

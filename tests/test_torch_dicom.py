@@ -421,7 +421,7 @@ def test_error_classes_and_helpers_match():
     from totalsegmentator2d_tpu.io.image import PARSER_ERRORS as JAX_ERRORS
     from totalsegmentator2d_tpu_torch.io.image import PARSER_ERRORS
     assert PARSER_ERRORS == JAX_ERRORS
-    assert native.ABI_VERSION == 4
+    assert native.ABI_VERSION == 5
     assert native._load().ts2dio_abi_version() == native.ABI_VERSION
 
 

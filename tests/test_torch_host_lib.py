@@ -8,15 +8,18 @@ bit for bit the port's float64 numpy mean and its device projection, within
 one float32 ulp of the reference package's, on any number of threads, and
 the threads each call takes; and the one-pass assembly of a scan's masks
 into its Result's arrays, bit for bit numpy's unpack, place and per-group
-copies on any number of threads, and the cores it shares with the
-projection."""
+copies on any number of threads, the cores it shares with the
+projection, and the populated mappings it can write into."""
 
 import ctypes
+import gc
 import gzip
 import os
 import sys
 import threading
 import zlib
+from concurrent.futures import Future
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -54,7 +57,7 @@ def test_library_is_built_in_the_package(lib):
     assert build.BUILD_DIR.startswith(PORT + os.sep)
     assert os.path.basename(path).startswith('libts2dio-')
     assert '_native' not in path
-    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION == 4
+    assert int(lib.ts2dio_abi_version()) == native.ABI_VERSION == 5
     assert lib.ts2dio_project_max_mean_i16_mt.argtypes[-1] is ctypes.c_longlong
     assert lib.ts2dio_assemble_masks_mt.argtypes[-1] is ctypes.c_longlong
     assert len(lib.ts2dio_assemble_masks_mt.argtypes) == 14
@@ -446,6 +449,23 @@ def _handle(packed, idx, bbox, full):
     return fut
 
 
+def _groups_handle(packed, idx, bbox, full, merge=True, pages=None,
+                   slots=None):
+    """A finish_groups handle of ``_handle``'s scan with ``merge``; with
+    ``pages``, its pages job gave those arrays (an exception: it raised),
+    holding a slot of ``slots``."""
+    from totalsegmentator2d_tpu_torch.inference.ensemble_engine import _Paged
+    job = None
+    if pages is not None:
+        job = Future()
+        if isinstance(pages, BaseException):
+            job.set_exception(pages)
+        else:
+            job.set_result([pages])
+    return _Paged(_handle(packed, idx, bbox, full), merge, job,
+                  slots if slots is not None else threading.Semaphore(0))
+
+
 def _layout(name, n_labels, seed):
     """(packed masks as the fetch gives them, batch index, bbox, full)."""
     full, ((y0, y1), (x0, x1)), bucket, idx = ASSEMBLY_LAYOUTS[name]
@@ -510,8 +530,8 @@ def test_finish_groups_is_the_numpy_chain(lib, monkeypatch, n_labels, layout):
         monkeypatch.setattr(native, 'PROJECT_MAX_THREADS', threads)
         for merge in (True, False):
             before = native.assembly_counts()
-            got = engine.finish_groups(_handle(packed, idx, bbox, full),
-                                       merge=merge)
+            got = engine.finish_groups(_groups_handle(packed, idx, bbox,
+                                                      full, merge))
             _assert_same_arrays(got, want, merge)
             after = native.assembly_counts()
             assert after['threads'] - before['threads'] == min(threads,
@@ -546,15 +566,15 @@ def test_assembly_falls_back_without_the_library(lib, monkeypatch):
     before = native.assembly_counts()
     monkeypatch.setattr(native, '_load', lambda: None)
     for merge in (True, False):
-        got = engine.finish_groups(_handle(packed, idx, bbox, full),
-                                   merge=merge)
+        got = engine.finish_groups(_groups_handle(packed, idx, bbox, full,
+                                                  merge))
         _assert_same_arrays(got, want, merge)
     monkeypatch.undo()
     strided = np.asfortranarray(packed)
     assert native.assemble_masks(strided, (0, 0) + packed.shape[:2],
                                  (5, 0), full, counts) is None
     _assert_same_arrays(engine.finish_groups(
-        _handle(strided, idx, bbox, full)), want, True)
+        _groups_handle(strided, idx, bbox, full)), want, True)
     after = native.assembly_counts()
     assert after['numpy'] - before['numpy'] == 4
     assert after['threaded'] == before['threaded']
@@ -656,3 +676,197 @@ def test_concurrent_projections_and_assemblies(lib):
         assert sum(a[k] - b[k] for k in ('threaded', 'serial')) == \
             callers // 2 * calls
     assert native._host_passes._running == native._host_passes._held == 0
+
+
+# -- the Result's arrays mapped ahead of the pass ------------------------------
+
+# the tsxr-v2 / ts2d-v2 groups' label counts, v1's, and one bit past a byte
+MAPPED_COUNTS = {name: ASSEMBLY_COUNTS[n] for name, n in
+                 (('v2', 117), ('v1', 104), ('odd', 9))}
+
+
+@pytest.fixture
+def every_array(monkeypatch):
+    """map_mask_arrays maps every array ahead, however small."""
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
+
+
+def _each(arrays):
+    """[the merged array or None, each group's array or None]."""
+    return [arrays[0], *arrays[1]]
+
+
+def _mapped(full, counts, merge):
+    """map_mask_arrays' arrays and each mapping's finalizer."""
+    got = native.map_mask_arrays(full, counts, merge)
+    return got, [a.base.released for a in _each(got) if a is not None]
+
+
+@pytest.mark.parametrize('merge', [True, False])
+@pytest.mark.parametrize('counts', list(MAPPED_COUNTS))
+@pytest.mark.parametrize('layout', ['top', 'bottom', 'left', 'right', 'full',
+                                    'bucket-offset', 'batch-row'])
+def test_assembly_into_mapped_arrays(lib, every_array, layout, counts,
+                                     merge):
+    """The pass into map_mask_arrays' arrays, for crops at each edge of the
+    frame, the whole frame, a bucket window and a batch row: bit for bit
+    the pass into fresh arrays and numpy's chain, into the mapped arrays
+    themselves, each its own memory apart from ``packed``, and counted as
+    prefaulted."""
+    counts = MAPPED_COUNTS[counts]
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout(layout, sum(counts), len(layout))
+    want = _numpy_chain(engine, _handle(packed, idx, bbox, full), counts)
+    scan = packed if idx is None else packed[idx]
+    window = bbox[2] if len(bbox) == 3 else (0, 0) + scan.shape[:2]
+    origin = (bbox[0][0], bbox[1][0])
+    fresh = native.assemble_masks(scan, window, origin, full, counts, merge)
+    out, _ = _mapped(full, counts, merge)
+    before = native.assembly_counts()
+    got = native.assemble_masks(scan, window, origin, full, counts, merge,
+                                out)
+    after = native.assembly_counts()
+    assert after['prefaulted'] - before['prefaulted'] == 1
+    _assert_same_arrays(got, want, merge)
+    _assert_same_arrays(got, fresh, merge)
+    arrays = [a for a in _each(got) if a is not None]
+    assert all(a is b for a, b in zip(arrays, [
+        a for a in _each(out) if a is not None]))
+    for a in arrays:
+        assert a.flags.c_contiguous and a.flags.writeable
+        assert isinstance(a.base, native._Mapping)
+        assert not np.shares_memory(a, packed)
+
+
+@pytest.mark.parametrize('chunk', [4096, 3 * 4096 + 1, 1 << 40])
+def test_mapped_arrays_are_released_with_their_last_view(
+        lib, every_array, monkeypatch, chunk):
+    """Each array is a mapping of its own, populated in chunks of any size
+    (a page, a size that is no whole number of pages, the whole at once),
+    writable end to end, and unmapped when the last array or view over it
+    is gone."""
+    monkeypatch.setattr(native, 'PAGES_CHUNK_BYTES', chunk)
+    counts = MAPPED_COUNTS['v2']
+    (merged, parts), released = _mapped((61, 53), counts, True)
+    assert len(released) == 1 + len(counts)
+    for i, a in enumerate([merged] + parts):
+        a[...] = i + 1
+        assert a.shape[:2] == (61, 53)
+        assert a.sum(dtype=np.int64) == (i + 1) * a.size
+    assert [a.shape[2] for a in parts] == list(counts)
+    assert merged.shape[2] == sum(counts)
+    view = parts[2][10:20, ::2]
+    del merged, parts, a
+    gc.collect()
+    assert [f.alive for f in released] == [False, False, False, True, False,
+                                           False]
+    del view
+    assert not any(f.alive for f in released)
+
+
+def test_a_refused_mapping_raises():
+    refusing = SimpleNamespace(ts2dio_map_pages=lambda size, chunk: None)
+    with pytest.raises(MemoryError):
+        native._Mapping(refusing, (4, 4, 3))
+
+
+def test_a_mapping_is_left_to_the_system_at_exit(lib, every_array):
+    """A mapping's finalizer does not run at the interpreter's exit, when
+    a daemon thread (a server's handler) may still read a Result over it:
+    the system frees it with the process."""
+    _, released = _mapped((9, 7), MAPPED_COUNTS['odd'], True)
+    assert released and all(f.alive and not f.atexit for f in released)
+
+
+def test_finish_falls_back_when_the_pages_job_failed(lib):
+    """A pages job that raised (the system refused a mapping): the finish
+    writes into fresh arrays, the same masks, and counts no prefaulted
+    pass."""
+    counts = MAPPED_COUNTS['v2']
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout('right', 117, 5)
+    want = _numpy_chain(engine, _handle(packed, idx, bbox, full), counts)
+    before = native.assembly_counts()
+    for merge in (True, False):
+        got = engine.finish_groups(_groups_handle(
+            packed, idx, bbox, full, merge, MemoryError('refused')))
+        _assert_same_arrays(got, want, merge)
+        assert not any(isinstance(a.base, native._Mapping)
+                       for a in got[1])
+    after = native.assembly_counts()
+    assert after['prefaulted'] == before['prefaulted']
+    assert after['threaded'] + after['serial'] - before['threaded'] \
+        - before['serial'] == 2
+
+
+@pytest.mark.parametrize('end', ['taken', 'failed', 'cancelled', 'dropped',
+                                 'collected'])
+def test_a_pages_job_frees_its_slot_once(lib, every_array, end):
+    """A job's slot is freed once, when its scan's finish takes the arrays
+    (or finds the job failed), when the job is dropped (at once if it had
+    not started, else as it ends, its arrays unmapped then), or when the
+    handle is gone unfinished; the finish writes the masks into the
+    arrays it took."""
+    counts = MAPPED_COUNTS['v1']
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout('inside', 104, 6)
+    slots = threading.BoundedSemaphore(1)    # a second release raises
+    assert slots.acquire(blocking=False)
+    pages, released = _mapped(full, counts, True)
+    handle = _groups_handle(packed, idx, bbox, full, True,
+                            MemoryError('refused') if end == 'failed'
+                            else pages, slots)
+    if end in ('cancelled', 'dropped'):    # a job not yet run
+        handle.pages = Future()
+    if end in ('taken', 'failed'):
+        got = engine.finish_groups(handle)
+        _assert_same_arrays(got, _numpy_chain(
+            engine, _handle(packed, idx, bbox, full), counts), True)
+        assert (got[0] is pages[0]) == (end == 'taken')
+    elif end == 'cancelled':
+        handle.drop()
+    elif end == 'dropped':
+        assert handle.pages.set_running_or_notify_cancel()
+        handle.drop()
+        assert not slots.acquire(blocking=False)    # not before it ends
+        handle.pages.set_result([pages])
+    else:
+        del handle
+        gc.collect()
+    assert slots.acquire(blocking=False)
+    if end == 'dropped':
+        del pages
+        gc.collect()
+        assert not any(f.alive for f in released)
+
+
+def test_arrays_under_the_threshold_are_left_to_the_pass(lib, monkeypatch):
+    """Only arrays of PAGES_MIN_BYTES or more are mapped ahead; the pass
+    allocates the rest, and a pass given some mapped arrays counts as
+    prefaulted."""
+    counts = MAPPED_COUNTS['v2']
+    engine = _engine(counts)
+    packed, idx, bbox, full = _layout('full', 117, 8)
+    # 30 x 40 pixels: the merged array 140,400 bytes, the groups' 25,200 to
+    # 31,200
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 30 * 40 * 25)
+    pages = native.map_mask_arrays(full, counts, True)
+    assert [a is not None for a in _each(pages)] == [
+        True, False, False, False, False, True]
+    assert native.maps_ahead(full, counts, True)
+    assert native.maps_ahead(full, counts, False)
+    assert not native.maps_ahead((30, 38), counts, False)
+    before = native.assembly_counts()['prefaulted']
+    got = engine.finish_groups(_groups_handle(packed, idx, bbox, full, True,
+                                              pages))
+    _assert_same_arrays(got, _numpy_chain(
+        engine, _handle(packed, idx, bbox, full), counts), True)
+    assert got[0] is pages[0] and got[1][4] is pages[1][4]
+    assert native.assembly_counts()['prefaulted'] - before == 1
+    monkeypatch.undo()
+    # a CT's Result at the default: nothing mapped, and no job asked for;
+    # a detector-size radiograph's is
+    assert native.map_mask_arrays((500, 512), counts, True) == (
+        None, [None] * 5)
+    assert not native.maps_ahead((500, 512), counts, True)
+    assert native.maps_ahead((3056, 2544), counts, False)

@@ -18,8 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 from tests.model_fixtures import build_group_set
 from totalsegmentator2d_tpu_torch.api import TS2D
 from totalsegmentator2d_tpu_torch.inference import (DynamicBatcher,
-                                                    EnsembleEngine)
-from totalsegmentator2d_tpu_torch.io import MedicalImage
+                                                    EnsembleEngine,
+                                                    ensemble_engine)
+from totalsegmentator2d_tpu_torch.io import MedicalImage, native
 from totalsegmentator2d_tpu_torch.utils import trace
 
 KEY = 'ts2d-v9-test'
@@ -39,6 +40,7 @@ TREE = {
         'program.upload': 'batcher.dispatch',
         'program.enqueue': 'batcher.dispatch', 'engine.fetch': None,
         'api.finish_predict': None, 'engine.wait': 'api.finish_predict',
+        'engine.pages': None, 'engine.pages_wait': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
         'api.assemble': 'api.finish_predict',
         'api.split': 'api.assemble'}),
@@ -51,6 +53,7 @@ TREE = {
         'program.upload': 'api.predict_async',
         'program.enqueue': 'api.predict_async',
         'api.finish_predict': None, 'engine.fetch': 'api.finish_predict',
+        'engine.pages': None, 'engine.pages_wait': 'api.finish_predict',
         'engine.unpack': 'api.finish_predict',
         'api.assemble': 'api.finish_predict',
         'api.split': 'api.assemble'}),
@@ -119,7 +122,8 @@ def _check_tree(spans, tree):
 
 
 @pytest.mark.parametrize('batching', [True, False])
-def test_traced_scan_gives_the_span_tree(root, ct, batching):
+def test_traced_scan_gives_the_span_tree(root, ct, monkeypatch, batching):
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)   # small arrays too
     with _tool(root, batching) as tool:
         trace.enable()
         handle = tool.predict_async(ct)
@@ -133,10 +137,18 @@ def test_traced_scan_gives_the_span_tree(root, ct, batching):
     assert len(roots) == 1 and len(roots[0].scans) == 1
     assert all(s.scans == roots[0].scans for s in spans)
     threads = {s.thread for s in spans}
-    assert len(threads) == (3 if batching else 1)
-    if batching:
-        assert {s.thread_name for s in spans} == {
-            threading.main_thread().name, 'ts2d-batcher', 'ts2d-batch-watch'}
+    assert len(threads) == (4 if batching else 2)
+    assert {s.thread_name for s in spans} == {
+        threading.main_thread().name, 'ts2d-pages_0'} | (
+            {'ts2d-batcher', 'ts2d-batch-watch'} if batching else set())
+    # the Result's pages are mapped on their own thread, before the finish
+    # waits them out of it
+    pages, = (s for s in spans if s.name == 'engine.pages')
+    wait, = (s for s in spans if s.name == 'engine.pages_wait')
+    assert pages.thread_name == 'ts2d-pages_0'
+    assert pages.end_ns <= wait.end_ns and pages.nbytes == sum(
+        a.nbytes for a in [result.get_segmentation().array]
+        + [result.get_segmentation(m).array for m in result.models])
 
 
 def test_blocking_predict_holds_both_halves(root, ct):
@@ -152,6 +164,33 @@ def test_blocking_predict_holds_both_halves(root, ct):
                         'program.wire_pack', 'program.upload',
                         'program.enqueue', 'api.finish_predict'}
     assert all(s.scans == top[0].scans for s in spans)
+
+
+@pytest.mark.parametrize('batching', [True, False])
+def test_scans_in_flight_wait_for_their_own_pages(root, ct, monkeypatch,
+                                                  batching):
+    """Three scans dispatched before any finishes: each of the first
+    ``PAGES_AHEAD``'s ``engine.pages`` (on the pages thread, with the bytes
+    it mapped) and ``engine.pages_wait`` (in its finish) carry that scan's
+    id alone; the scan dispatched past them has neither."""
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
+    ahead = ensemble_engine.PAGES_AHEAD
+    assert ahead < 3
+    with _tool(root, batching) as tool:
+        trace.enable()
+        handles = [tool.predict_async(ct) for _ in range(3)]
+        for h in handles:
+            tool.finish_predict(h)
+        spans = trace.collect()
+    roots = [s.scans for s in sorted(spans, key=lambda s: s.start_ns)
+             if s.name == 'api.predict_async']
+    assert len(set(roots)) == 3 and all(len(r) == 1 for r in roots)
+    for name in ('engine.pages', 'engine.pages_wait'):
+        mine = [s for s in spans if s.name == name]
+        assert sorted(s.scans for s in mine) == sorted(roots[:ahead]), name
+    pages = [s for s in spans if s.name == 'engine.pages']
+    assert {s.thread_name for s in pages} == {'ts2d-pages_0'}
+    assert len({s.nbytes for s in pages}) == 1 and pages[0].nbytes > 0
 
 
 def test_coalesced_scans_share_one_dispatch(root, ct):

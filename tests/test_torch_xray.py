@@ -19,7 +19,7 @@ from tests.model_fixtures import build_group_set
 from tests.torch_mirror import TorchPlainConvUNet, make_spec
 from totalsegmentator2d_tpu_torch.api import TS2D
 from totalsegmentator2d_tpu_torch.inference import wire
-from totalsegmentator2d_tpu_torch.io import MedicalImage
+from totalsegmentator2d_tpu_torch.io import MedicalImage, native
 from totalsegmentator2d_tpu_torch.ops.annotations import get_annotation_meta
 from totalsegmentator2d_tpu_torch.utils import trace
 
@@ -194,6 +194,27 @@ def test_result_arrays_are_the_numpy_chain(root, monkeypatch, batching,
                for i, g in zip(res.models, GROUPS))
 
 
+@pytest.mark.parametrize('merge', [True, False])
+def test_result_arrays_are_the_mapped_pages(root, monkeypatch, merge):
+    """A radiograph's Result masks, the numpy chain's, are the arrays the
+    pages thread mapped for them while the scan ran (a mapping each), and
+    the pass that wrote them is counted as prefaulted."""
+    img = MedicalImage(array=radiograph(IMAGES[2][0], 2 ** 31 + 6),
+                       spacing=IMAGES[2][1])
+    # these small arrays as a detector-size radiograph's, all mapped ahead
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
+    with TS2D(key=KEY, use_remote=False, fetch_remote=False, local=root,
+              device='cpu', batching=False) as tool:
+        before = native.assembly_counts()['prefaulted']
+        res = check_result_against_chain(tool, img, monkeypatch, merge=merge)
+        assert native.assembly_counts()['prefaulted'] - before == 1
+    arrays = [res.get_segmentation(i).array for i in res.models]
+    if merge:
+        arrays.append(res.get_segmentation().array)
+    assert all(isinstance(a.base, native._Mapping) for a in arrays)
+    assert len({id(a.base) for a in arrays}) == len(arrays)
+
+
 @pytest.fixture
 def fetched(monkeypatch):
     """Bytes copied to the host by the engine's fetches (every fetch of
@@ -219,6 +240,7 @@ def test_spans_and_the_fetch_byte_count(root, fetched, monkeypatch,
     ``engine.fetch`` spans carry the bytes fetched (the speculative prefix
     of a second scan of one shape included)."""
     monkeypatch.setenv('TS2D_COMPACT', '1' if compact else '0')
+    monkeypatch.setattr(native, 'PAGES_MIN_BYTES', 0)
     img = MedicalImage(array=radiograph(IMAGES[1][0], 2 ** 31 + 9),
                        spacing=IMAGES[1][1])
     with TS2D(key=KEY, use_remote=False, fetch_remote=False, local=root,
@@ -240,4 +262,14 @@ def test_spans_and_the_fetch_byte_count(root, fetched, monkeypatch,
     fetch = [s for s in spans if s.name == 'engine.fetch']
     assert len(fetch) == 2 and all(s.nbytes > 0 for s in fetch)
     assert sum(s.nbytes for s in fetch) == sum(fetched)
-    assert all(s.nbytes == 0 for s in spans if s.name != 'engine.fetch')
+    # each scan's Result pages, merged and per model, mapped on the pages
+    # thread and waited for in its finish
+    scans = {s.scans for s in spans if s.name == 'api.predict'}
+    frame = IMAGES[1][0][0] * IMAGES[1][0][1] * sum(map(len, LABELS.values()))
+    for name in ('engine.pages', 'engine.pages_wait'):
+        mine = [s for s in spans if s.name == name]
+        assert {s.scans for s in mine} == scans and len(mine) == 2, name
+    assert all(s.nbytes == 2 * frame for s in spans
+               if s.name == 'engine.pages')
+    assert all(s.nbytes == 0 for s in spans
+               if s.name not in ('engine.fetch', 'engine.pages'))

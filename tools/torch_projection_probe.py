@@ -3,6 +3,7 @@ own, and the projection's paths over one benchmark run:
 
     python tools/torch_projection_probe.py ROOT [ROOT ...]
     python tools/torch_projection_probe.py --cell CELL --seed N [--trace 1]
+    python tools/torch_projection_probe.py --pages
 
 Each ROOT is a checkout of the repository whose
 ``totalsegmentator2d_tpu_torch`` is measured: ``io.native.project_max_mean``
@@ -24,6 +25,17 @@ and the one-pass assembly of a radiograph's Result (``assemble_masks``: a
 group) timed on 1 to 8 threads, 5 calls each after one warm-up, against
 numpy's unpack, place and copies, each run's arrays checked against the
 one-thread call's.
+
+``--pages`` times the routes to that Result's pages before its pass, each
+on a thread of its own: ``io.native.map_mask_arrays`` populating its
+mappings whole or in chunks of 32, 8, 2 and 0.5 MiB, and ``np.empty``
+with one byte a page written. For each: the job's ms alone; the job's ms
+and a caller's ms beside it, a caller that writes fresh memory as a
+radiograph's crop and fetch do (a 32 MB copy and a zeroed 228 MB array,
+twice) and one that only computes on memory it wrote before (each against
+its ms alone); and the pass's ms into the job's arrays (against the pass
+into fresh ones); medians of 3, the arrays checked against the fresh
+pass's.
 """
 
 import json
@@ -113,6 +125,97 @@ def cell(argv) -> int:
     return rc
 
 
+def time_pages(full=(3056, 2544), crop=(2900, 2400),
+               counts=(24, 21, 22, 24, 26)) -> dict:
+    """The routes to a detector-size radiograph's Result pages before its
+    pass, beside a caller writing fresh memory: median ms of 3 each."""
+    import threading
+    import numpy as np
+    from totalsegmentator2d_tpu_torch.io import native
+    n_labels = sum(counts)
+    packed = np.random.default_rng(22).integers(
+        0, 256, crop + (-(-n_labels // 8),), dtype=np.uint8)
+    window = (0, 0) + crop
+    origin = tuple((f - c) // 2 for f, c in zip(full, crop))
+
+    def ms(t):
+        return (time.perf_counter() - t) * 1e3
+
+    def caller():
+        t = time.perf_counter()
+        for _ in range(2):
+            a = np.empty(32 << 20, np.uint8)
+            a.fill(1)
+            b = np.zeros(228 << 20, np.uint8)
+            b[::4096] = 1
+            del a, b
+        return ms(t)
+    warm = np.ones(64 << 20, np.uint8)
+
+    def computer():
+        t = time.perf_counter()
+        for _ in range(8):
+            warm.sum(dtype=np.int64)
+        return ms(t)
+    callers = {'caller': caller, 'computer': computer}
+
+    def touched():
+        got = ([np.empty(full + (n_labels,), np.uint8)],
+               [np.empty(full + (n,), np.uint8) for n in counts])
+        for a in got[0] + got[1]:
+            a.reshape(-1)[::4096] = 0
+        return got[0][0], got[1]
+
+    def mapped(chunk):
+        def job():
+            native.PAGES_CHUNK_BYTES = chunk
+            return native.map_mask_arrays(full, counts, True)
+        return job
+
+    def passed(out=None):
+        t = time.perf_counter()
+        got = native.assemble_masks(packed, window, origin, full, counts,
+                                    True, out)
+        return got, ms(t)
+    chunk0 = native.PAGES_CHUNK_BYTES
+    want, _ = passed()
+    line = {'frame': list(full) + [n_labels], 'fresh_pass_ms': round(
+        statistics.median(passed()[1] for _ in range(3)), 3)}
+    for name, fn in callers.items():
+        line[f'{name}_alone_ms'] = round(statistics.median(
+            fn() for _ in range(3)), 3)
+    routes = {'touch': touched, 'map_whole': mapped(1 << 62)}
+    routes.update((f'map_{c >> 10}KiB', mapped(c)) for c in (
+        32 << 20, 8 << 20, 2 << 20, 512 << 10))
+    for name, job in routes.items():
+        runs = {}
+        for beside in (None, *callers):
+            for _ in range(3):
+                box = {}
+
+                def run():
+                    t = time.perf_counter()
+                    box['out'] = job()
+                    box['job_ms'] = ms(t)
+                worker = threading.Thread(target=run)
+                worker.start()
+                if beside is not None:
+                    runs.setdefault(f'{beside}_ms', []).append(
+                        callers[beside]())
+                worker.join()
+                key = f'job_beside_{beside}_ms' if beside else 'job_ms'
+                runs.setdefault(key, []).append(box['job_ms'])
+                got, pass_ms = passed(box.pop('out'))
+                assert all(a.tobytes() == b.tobytes() for a, b in
+                           zip([got[0]] + got[1], [want[0]] + want[1]))
+                del got
+                runs.setdefault('pass_ms', []).append(pass_ms)
+        line[name] = {k: round(statistics.median(v), 3)
+                      for k, v in runs.items()}
+    native.PAGES_CHUNK_BYTES = chunk0
+    return line
+
+
 def time_assembly(full=(3056, 2544), crop=(2900, 2400),
                   counts=(24, 21, 22, 24, 26)) -> dict:
     """The one-pass assembly of a detector-size radiograph's masks on 1 to
@@ -159,6 +262,12 @@ def time_assembly(full=(3056, 2544), crop=(2900, 2400),
 def main(argv) -> int:
     if '--cell' in argv:
         return cell(argv)
+    if '--pages' in argv:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        print(host(), flush=True)
+        print('pages', json.dumps(time_pages()), flush=True)
+        return 0
     print(host(), flush=True)
     rc = 0
     for root in argv:

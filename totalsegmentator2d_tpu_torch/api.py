@@ -355,7 +355,8 @@ class TS2D:
                 arr = arr[..., None]
             arr = np.ascontiguousarray(arr, np.float32)
         spacing_yx = tuple(reversed(input2d.spacing))
-        handle = self._fused.predict_array_async(arr, spacing_yx)
+        handle = self._fused.predict_groups_async(arr, spacing_yx,
+                                                  bool(merge))
         return (handle, original, model_input, input2d, cache, collapse,
                 merge, trace.scans())
 
@@ -363,8 +364,7 @@ class TS2D:
         """The device half: wait for the ensemble's result and assemble the
         Result."""
         with trace.span('api.finish_predict', scan=ctx[-1]):
-            merged2d, parts = self._fused.finish_groups(ctx[0],
-                                                        merge=ctx[-2])
+            merged2d, parts = self._fused.finish_groups(ctx[0])
             with trace.span('api.assemble'):
                 return self._assemble(merged2d, parts, *ctx[1:-1])
 

@@ -3,8 +3,8 @@
 // The host-side hot paths beneath its IO and front end, bound through
 // ctypes by io/native.py: gzip/zlib inflate and deflate for the NRRD, NIfTI
 // and MetaImage payloads, the fused coronal MAX + MEAN projection of an
-// int16 CT, the unpack of a scan's packed masks into its Result's arrays,
-// and the serial hot loops of the DICOM codecs (the JPEG Lossless
+// int16 CT, the unpack of a scan's packed masks into its Result's arrays
+// and the populated mappings those arrays live in, and the serial hot loops of the DICOM codecs (the JPEG Lossless
 // and sequential-DCT Huffman decoders and the DCT reconstruction, the
 // JPEG-LS scan decoder, the JPEG 2000 Tier-1 block decoder and inverse
 // DWTs; io/jpegll.py, jpegdct.py, jpegls.py, jpeg2k.py). It is the
@@ -45,6 +45,8 @@
 #include <system_error>
 #include <thread>
 #include <vector>
+#include <sys/mman.h>
+#include <unistd.h>
 #include <zlib.h>
 
 // the largest window handed to zlib at once; a build may set it smaller
@@ -138,8 +140,9 @@ extern "C" {
 // points, whose truncated-entropy streams return -4; 3: the projection
 // threaded over z slabs, ts2dio_project_max_mean_i16_mt; 4: the Result's
 // masks unpacked, placed and split in one threaded pass,
-// ts2dio_assemble_masks_mt).
-long long ts2dio_abi_version(void) { return 4; }
+// ts2dio_assemble_masks_mt; 5: the populated mappings of the Result's
+// arrays, ts2dio_map_pages and ts2dio_unmap_pages).
+long long ts2dio_abi_version(void) { return 5; }
 
 // An upper bound for the inflated size of a gzip or zlib stream. A single
 // gzip member's ISIZE trailer (the size mod 2^32) is trusted when it is
@@ -409,6 +412,47 @@ long long ts2dio_assemble_masks_mt(const uint8_t* src, long long src_row,
   band(0);
   for (std::thread& t : pool) t.join();
   return H * W;
+}
+
+// The memory of one of a Result's mask arrays, mapped before the pass
+// writes it: a private anonymous mapping of ``size`` bytes, readable and
+// writable, whose pages are populated ``chunk`` bytes at a time (rounded up
+// to whole pages), each chunk mapped again over the first mapping with
+// MAP_FIXED | MAP_POPULATE. A populate holds the process's memory map for
+// its chunk, so another thread's faults and mappings wait for at most one
+// chunk. Returns the mapping's address, or null when the system refuses a
+// mapping (nothing stays mapped then). ts2dio_unmap_pages releases it.
+void* ts2dio_map_pages(long long size, long long chunk) {
+  if (size <= 0) return nullptr;
+#ifdef MAP_POPULATE
+  const int populate = MAP_POPULATE;
+#else
+  const int populate = 0;
+#endif
+  const int prot = PROT_READ | PROT_WRITE;
+  const int flags = MAP_PRIVATE | MAP_ANONYMOUS;
+  const size_t bytes = static_cast<size_t>(size);
+  const long long page = sysconf(_SC_PAGESIZE) > 0 ? sysconf(_SC_PAGESIZE)
+                                                   : 4096;
+  chunk = std::max(page, (std::min(chunk, size) + page - 1) / page * page);
+  void* p = mmap(nullptr, bytes, prot, flags, -1, 0);
+  if (p == MAP_FAILED) return nullptr;
+  uint8_t* const base = static_cast<uint8_t*>(p);
+  for (long long at = 0; at < size; at += chunk) {
+    const size_t n = static_cast<size_t>(std::min(chunk, size - at));
+    if (mmap(base + at, n, prot, flags | MAP_FIXED | populate, -1, 0) ==
+        MAP_FAILED) {
+      munmap(p, bytes);
+      return nullptr;
+    }
+  }
+  return p;
+}
+
+// Unmap what ts2dio_map_pages mapped. Returns 0, or -1 where the system
+// refuses.
+long long ts2dio_unmap_pages(void* addr, long long size) {
+  return munmap(addr, static_cast<size_t>(size)) == 0 ? 0 : -1;
 }
 
 // ---------------------------------------------------------------------------

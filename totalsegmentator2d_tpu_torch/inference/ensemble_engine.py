@@ -20,7 +20,9 @@ Serving, as in the reference package:
 - **async dispatch** (:meth:`EnsembleEngine.predict_array_async` /
   :meth:`~EnsembleEngine.finish_array`, or
   :meth:`~EnsembleEngine.finish_groups`, which unpacks, places and splits
-  the masks into each group's array in one native pass) and
+  the masks into each group's array in one native pass, into arrays whose
+  pages the engine's pages thread mapped while the scan ran when it was
+  dispatched by :meth:`~EnsembleEngine.predict_groups_async`) and
   **micro-batching**
   (``auto_batch=N``: concurrent requests of one shape coalesce into the
   batched program, inference/batching.py);
@@ -47,14 +49,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from concurrent.futures import Future
+import threading
+import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..io.native import assemble_masks
+from ..io.native import (MaskArrays, assemble_masks, map_mask_arrays,
+                         maps_ahead)
 from ..models.convert import round_to_bf16
 from ..models.plans import ModelSpec
 from ..models.unet import UNet
@@ -102,6 +107,52 @@ def _nonzero_range(vol: np.ndarray, axis: int):
     hi = next(i for i in range(n - 1, lo - 1, -1)
               if np.take(vol, i, axis).any())
     return lo, hi + 1
+
+
+#: the Results whose arrays the pages thread may hold mapped ahead of their
+#: finish (1.82 GB each for a detector-size radiograph); a scan dispatched
+#: beyond them gets no job, and its pass allocates its arrays as it goes
+PAGES_AHEAD = 2
+
+
+class _Paged:
+    """A :meth:`EnsembleEngine.predict_groups_async` handle: the scan's
+    :meth:`~EnsembleEngine.predict_array_async` handle, the ``merge`` of
+    its Result, and the pages thread's job mapping the Result's arrays
+    (None: no job). The job holds one of the engine's ``PAGES_AHEAD``
+    slots until a finish takes its arrays or it is dropped, or this handle
+    is gone unfinished (``release``, a finalizer, frees it once)."""
+    __slots__ = ('handle', 'merge', 'pages', 'release', '__weakref__')
+
+    def __init__(self, handle, merge: bool, pages: Optional[Future] = None,
+                 slots: Optional[threading.Semaphore] = None):
+        self.handle, self.merge, self.pages = handle, merge, pages
+        self.release = (weakref.finalize(self, slots.release)
+                        if pages is not None else None)
+
+    def take(self) -> Optional[MaskArrays]:
+        """Wait for the job and take its arrays, and free its slot; None
+        without a job, or where it failed (the system refused a mapping) or
+        was cancelled."""
+        if self.pages is None:
+            return None
+        try:
+            box = self.pages.result()
+        except Exception:
+            box = None
+        self.release()
+        return box.pop() if box else None
+
+    def drop(self) -> None:
+        """Let go of a job whose arrays no finish will take: cancelled if
+        it has not started, else its arrays dropped as it ends, so nothing
+        that still holds the job (a traceback) keeps them mapped."""
+        if self.pages is None:
+            return
+        if self.pages.cancel():
+            self.release()
+        else:
+            self.pages.add_done_callback(lambda _: self.take())
 
 
 class EnsembleEngine(ScanEngine):
@@ -155,7 +206,8 @@ class EnsembleEngine(ScanEngine):
             raise ValueError('auto_batch cannot be combined with tile_mesh')
         if not specs:
             raise ValueError('At least one group is required')
-        self._batcher = None  # before anything can raise: close() reads it
+        # before anything can raise: close() reads them
+        self._batcher = self._pager = None
         super().__init__(specs[0], tile_step_size, use_mirroring,
                          compute_dtype, device, forward_batch_cap, dtype)
         self.specs = list(specs)
@@ -207,13 +259,19 @@ class EnsembleEngine(ScanEngine):
             self.models.append(row)
         if auto_batch is not None:
             self._batcher = DynamicBatcher(self, max_batch=auto_batch)
+        # maps each scan's Result arrays while the scan runs (finish_groups)
+        self._pager = ThreadPoolExecutor(1, thread_name_prefix='ts2d-pages')
+        self._pages_slots = threading.BoundedSemaphore(PAGES_AHEAD)
 
     def close(self) -> None:
-        """Stop the micro-batch dispatcher thread (if enabled) and release
-        the exact-numerics hold."""
+        """Stop the micro-batch dispatcher thread (if enabled) and the
+        pages thread, and release the exact-numerics hold."""
         if self._batcher is not None:
             self._batcher.stop()
             self._batcher = None
+        if self._pager is not None:
+            self._pager.shutdown(wait=False, cancel_futures=True)
+            self._pager = None
         super().close()
 
     def set_batch_linger(self, linger_ms: float) -> None:
@@ -368,6 +426,43 @@ class EnsembleEngine(ScanEngine):
         return (self._launch_solo(cropped, mask, spacing_yx, wire), None,
                 bbox, arr.shape[:2])
 
+    def predict_groups_async(self, arr: np.ndarray,
+                             spacing_yx: Sequence[float],
+                             merge: bool = True) -> _Paged:
+        """:meth:`predict_array_async` for :meth:`finish_groups`, with
+        ``merge``. Where the Result has an array large enough to map ahead
+        (``io.native.maps_ahead``) and fewer than ``PAGES_AHEAD`` Results
+        hold mapped pages, the pages thread is first given the job of
+        mapping and populating its arrays (``engine.pages``), which it does
+        while the scan is cropped, run and fetched, so that the finish's
+        pass writes into present pages."""
+        if self._pager is None:
+            raise RuntimeError('the engine is closed')
+        counts = self.output_label_counts
+        pages = None
+        if (maps_ahead(arr.shape[:2], counts, merge)
+                and self._pages_slots.acquire(blocking=False)):
+            pages = self._pager.submit(self._map_pages, arr.shape[:2],
+                                       merge, trace.scans())
+        paged = _Paged(None, merge, pages, self._pages_slots)
+        try:
+            paged.handle = self.predict_array_async(arr, spacing_yx)
+        except BaseException:
+            paged.drop()
+            raise
+        return paged
+
+    def _map_pages(self, full, merge: bool, scans) -> List:
+        """The pages thread's job: [the Result's arrays from
+        ``io.native.map_mask_arrays``], a list that :meth:`_Paged.take`
+        empties."""
+        with trace.span('engine.pages', scan=scans):
+            got = map_mask_arrays(full, self.output_label_counts, merge)
+            if got is not None:
+                trace.count_bytes(sum(a.nbytes for a in (got[0], *got[1])
+                                      if a is not None))
+            return [got]
+
     def _launch_solo(self, cropped: np.ndarray, mask, spacing_yx,
                      wire) -> DeviceResult:
         """The serving program on one cropped scan, launched without
@@ -401,22 +496,29 @@ class EnsembleEngine(ScanEngine):
         with trace.span('engine.place'):
             return self._place(seg, bbox, full)
 
-    def finish_groups(self, handle, merge: bool = True
+    def finish_groups(self, paged: _Paged
                       ) -> Tuple[Optional[np.ndarray], List[np.ndarray]]:
-        """Wait for a :meth:`predict_array_async` handle; returns (the
+        """Wait for a :meth:`predict_groups_async` handle; returns (the
         merged segmentation :meth:`finish_array` returns, or None without
-        ``merge``; [each group's channels of it, in group order]), every
+        its ``merge``; [each group's channels of it, in group order]), every
         array C-contiguous and its own memory. One native pass unpacks,
         places and splits the masks on the host's cores
-        (``io.native.assemble_masks``); without the library, numpy's unpack,
-        place and copies give the same arrays."""
-        packed, bbox, full = self._wait_packed(handle)
+        (``io.native.assemble_masks``), into the arrays the pages thread
+        mapped where the dispatch gave it the job (waited for in
+        ``engine.pages_wait``; fresh ones where it failed); without the
+        library, numpy's unpack, place and copies give the same arrays."""
+        merge = paged.merge
+        packed, bbox, full = self._wait_packed(paged.handle)
+        out = None
+        if paged.pages is not None:
+            with trace.span('engine.pages_wait'):
+                out = paged.take()
         counts = self.output_label_counts
         with trace.span('engine.unpack'):
             window = bbox[2] if len(bbox) == 3 else (0, 0) + packed.shape[:2]
             (y0, _), (x0, _) = bbox[:2]
             got = assemble_masks(packed, window, (y0, x0), full, counts,
-                                 merge)
+                                 merge, out)
             if got is not None:
                 return got
             seg = self._place(unpack_bits(packed, self.total_labels), bbox,

@@ -2,7 +2,8 @@
 
 The gzip/zlib payloads of NRRD, NIfTI and MetaImage, the fused MAX + MEAN
 host projection of an int16 CT, the unpack of a scan's packed masks into
-its Result's arrays and the serial hot loops of the DICOM codecs (JPEG
+its Result's arrays, the populated mappings those arrays can live in, and
+the serial hot loops of the DICOM codecs (JPEG
 Lossless, sequential DCT, JPEG-LS, JPEG 2000) run in C through ctypes.
 The library is built with the host C++ compiler and zlib at first use
 (:func:`~..ops.cuda.build.host_library`, into the package's ``build/``).
@@ -22,6 +23,9 @@ masks' assembly over bands of the frame's rows, each on as many as its size
 pays for and the process's free cores allow, the two sharing the cores
 (:func:`project_max_mean`, :func:`assemble_masks`);
 :func:`projection_counts` and :func:`assembly_counts` count their paths.
+:func:`map_mask_arrays` maps and populates the arrays of a Result ahead of
+its pass, on another thread, so that the pass's writes find their pages
+present.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import weakref
 import zlib
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -38,7 +43,7 @@ import numpy as np
 from ..utils.logging import warn
 
 #: the library version these bindings were written for (ts2dio_abi_version)
-ABI_VERSION = 4
+ABI_VERSION = 5
 
 # Threads of a file-level decode pool (io/dicom.py's series pool) set
 # ``in_file_worker`` here; nested decode stages (io/jpeg2k.py's code-block
@@ -80,6 +85,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 8
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_longlong])
+    lib.ts2dio_map_pages.restype = ctypes.c_void_p
+    lib.ts2dio_map_pages.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    lib.ts2dio_unmap_pages.restype = ctypes.c_longlong
+    lib.ts2dio_unmap_pages.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
     ll, p, i, d = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p, \
         ctypes.c_double
     signatures = {
@@ -224,6 +233,7 @@ class _HostPasses:
         self._counts = {kind: dict.fromkeys(('threaded', 'serial', 'numpy',
                                              'threads'), 0)
                         for kind in self.KINDS}
+        self._counts['assembly']['prefaulted'] = 0
 
     @contextmanager
     def share(self, units: int, parts: int,
@@ -250,14 +260,18 @@ class _HostPasses:
                 self._running -= 1
                 self._held -= threads
 
-    def count(self, kind: str, threads: int) -> None:
-        """One pass of ``kind`` on ``threads`` native threads (0: numpy's)."""
+    def count(self, kind: str, threads: int, prefaulted: bool = False
+              ) -> None:
+        """One pass of ``kind`` on ``threads`` native threads (0: numpy's);
+        ``prefaulted``: an assembly that wrote into arrays it was given."""
         with self._lock:
             path = ('numpy' if threads == 0 else
                     'serial' if threads == 1 else 'threaded')
             counts = self._counts[kind]
             counts[path] += 1
             counts['threads'] += threads
+            if prefaulted:
+                counts['prefaulted'] += 1
 
     def counts(self, kind: str) -> Dict[str, int]:
         with self._lock:
@@ -279,7 +293,9 @@ def assembly_counts() -> Dict[str, int]:
     """The process's assemblies of a Result's masks
     (:func:`assemble_masks`) by path, as :func:`projection_counts` counts
     the projections: ``threaded``, ``serial``, ``numpy`` (the caller
-    unpacks, places and splits in numpy) and ``threads``."""
+    unpacks, places and splits in numpy) and ``threads``; and
+    ``prefaulted``, the native passes that wrote into arrays they were
+    given (``out``, from :func:`map_mask_arrays`)."""
     return _host_passes.counts('assembly')
 
 
@@ -316,20 +332,99 @@ def project_max_mean(vol: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]
 
 # -- the Result's masks --------------------------------------------------------
 
-MaskArrays = Tuple[Optional[np.ndarray], List[np.ndarray]]
+MaskArrays = Tuple[Optional[np.ndarray], List[Optional[np.ndarray]]]
+
+#: the bytes of a Result's mapping populated at a time
+#: (:func:`map_mask_arrays`): a populate holds the process's memory map, so
+#: the caller's own allocations and first writes wait for one chunk at most.
+#: On an H100's 8-core host, whose kernel serves page faults one at a time,
+#: a caller writing 520 MB of fresh memory beside a 1.8 GB populate took
+#: 126 ms alone, 239 beside chunks of 2 MiB (the populate 378 ms), 384
+#: beside chunks of 32 MiB and 344 beside one populate of the whole (185
+#: ms); chunks of 512 KiB took 2.3 s to populate
+PAGES_CHUNK_BYTES = 2 << 20
+#: the smallest array :func:`map_mask_arrays` maps ahead. glibc's malloc
+#: gives an allocation of 32 MiB or more a fresh mapping of its own (its
+#: mmap threshold rises to 32 MiB at most), whose pages the pass faults in;
+#: a smaller one comes from the heap, whose pages a process that assembled
+#: a Result before already holds. On that host, mapping a CT's 36-60 MB
+#: Result ahead (every array under 32 MiB) cost a fast solo scan 6-27% of
+#: the scans a second and left its pass as it was (~5 ms)
+PAGES_MIN_BYTES = 32 << 20
+
+
+class _Mapping:
+    """One private anonymous mapping of the library's, seen by numpy
+    through its array interface: the base of the arrays over it, unmapped
+    when the last of them is gone (``released``, its finalizer, is then
+    dead). At the interpreter's exit a live mapping stays mapped (a
+    daemon thread may still read a Result), and the system frees it with
+    the process."""
+
+    def __init__(self, lib: ctypes.CDLL, shape: Tuple[int, ...]):
+        size = int(np.prod(shape))
+        addr = lib.ts2dio_map_pages(size, PAGES_CHUNK_BYTES)
+        if not addr:
+            raise MemoryError(f'cannot map {size} bytes for a Result\'s '
+                              f'masks')
+        self.__array_interface__ = {'shape': shape, 'typestr': '|u1',
+                                    'data': (addr, False), 'version': 3}
+        self.released = weakref.finalize(self, lib.ts2dio_unmap_pages,
+                                         addr, size)
+        self.released.atexit = False
+
+
+def maps_ahead(full, counts: Sequence[int], merge: bool) -> bool:
+    """Whether :func:`map_mask_arrays` maps any of the Result's arrays
+    ahead: one of them, the merged one or a group's, holds
+    ``PAGES_MIN_BYTES`` or more."""
+    H, W = (int(v) for v in full)
+    largest = int(sum(counts)) if merge else max(map(int, counts))
+    return H * W * largest >= PAGES_MIN_BYTES
+
+
+def map_mask_arrays(full, counts: Sequence[int],
+                    merge: bool) -> Optional[MaskArrays]:
+    """The arrays :func:`assemble_masks` writes a scan's masks into, made
+    before it runs: (the merged (H, W, L) array, or None without
+    ``merge``; [each group's (H, W, counts[g]) array]), uint8,
+    C-contiguous, writable, each a private anonymous mapping of its own
+    whose pages are already populated (``PAGES_CHUNK_BYTES`` at a time) and
+    unmapped when the last view of it is gone; None in place of each array
+    under ``PAGES_MIN_BYTES``, which the pass allocates. The pages are the
+    work: a host that serves each first write of a fresh page as a fault
+    spends most of a radiograph's pass on them, so a thread maps them while
+    the scan is cropped, run and fetched. Their content is not defined: the
+    pass writes every byte. None without the library; raises MemoryError
+    where the system refuses a mapping."""
+    lib = _load()
+    if lib is None:
+        return None
+    H, W = (int(v) for v in full)
+
+    def ahead(n: int) -> Optional[np.ndarray]:
+        if H * W * n < PAGES_MIN_BYTES:
+            return None
+        return np.asarray(_Mapping(lib, (H, W, n)))
+    return (ahead(int(sum(counts))) if merge else None,
+            [ahead(int(n)) for n in counts])
 
 
 def _assemble_native(lib: ctypes.CDLL, packed: np.ndarray, window, origin,
                      full, counts: Sequence[int], merge: bool,
-                     threads: int) -> Optional[MaskArrays]:
+                     threads: int, out: Optional[MaskArrays] = None
+                     ) -> Optional[MaskArrays]:
     """The native pass on ``threads`` threads over bands of the frame's
-    rows; None where the library refuses the layout."""
+    rows, into the arrays of ``out`` and fresh ones in place of its Nones;
+    None where the library refuses the layout."""
     sy, sx, h, w = (int(v) for v in window)
     H, W = (int(v) for v in full)
     nb = int(packed.shape[-1])
-    merged = (np.empty((H, W, int(sum(counts))), np.uint8) if merge
-              else None)
-    parts = [np.empty((H, W, int(n)), np.uint8) for n in counts]
+    merged, parts = out or (None, [None] * len(counts))
+    if merge and merged is None:
+        merged = np.empty((H, W, int(sum(counts))), np.uint8)
+    parts = [np.empty((H, W, int(n)), np.uint8) if p is None else p
+             for p, n in zip(parts, counts)]
     ptrs = (ctypes.c_void_p * len(parts))(*(p.ctypes.data for p in parts))
     n_labels = np.asarray(counts, np.int64)
     src = packed.ctypes.data + sy * packed.strides[0] + sx * nb
@@ -341,8 +436,8 @@ def _assemble_native(lib: ctypes.CDLL, packed: np.ndarray, window, origin,
 
 
 def assemble_masks(packed: np.ndarray, window, origin, full,
-                   counts: Sequence[int],
-                   merge: bool = True) -> Optional[MaskArrays]:
+                   counts: Sequence[int], merge: bool = True,
+                   out: Optional[MaskArrays] = None) -> Optional[MaskArrays]:
     """A scan's packed masks as its Result's arrays in one pass: the
     ``window`` (y, x, h, w) of the packed (rows, cols, ceil(L / 8)) uint8
     masks (little bit order, ``np.unpackbits(..., bitorder='little')``)
@@ -354,9 +449,11 @@ def assemble_masks(packed: np.ndarray, window, origin, full,
     ``np.ascontiguousarray`` of each group's channels; or None without the
     library, or for a layout it does not take (a pixel's bytes not
     contiguous, too few bits, a window off the canvas or the frame), which
-    the caller then assembles in numpy. Threads as
-    :meth:`_HostPasses.share` gives them, by the bytes written; the same
-    arrays on any number."""
+    the caller then assembles in numpy. ``out``, arrays of that form for
+    the same ``merge`` made ahead (:func:`map_mask_arrays`, at least one of
+    them), takes the masks; the pass allocates those it has None for.
+    Threads as :meth:`_HostPasses.share` gives them, by the bytes written;
+    the same arrays on any number."""
     lib = _load()
     H, W = (int(v) for v in full)
     _, _, h, w = (int(v) for v in window)
@@ -375,8 +472,9 @@ def assemble_masks(packed: np.ndarray, window, origin, full,
     nbytes = H * W * L * (2 if merge else 1)
     with _host_passes.share(nbytes, H, ASSEMBLY_BAND_BYTES) as threads:
         res = _assemble_native(lib, packed, window, origin, full, counts,
-                               merge, threads)
-    _host_passes.count('assembly', threads if res is not None else 0)
+                               merge, threads, out)
+    _host_passes.count('assembly', threads if res is not None else 0,
+                       res is not None and out is not None)
     return res
 
 
