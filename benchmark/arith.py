@@ -8,6 +8,8 @@ from __future__ import annotations
 import statistics
 from typing import Iterable, List, Sequence, Tuple
 
+from . import reference
+
 # NVIDIA H100 SXM data sheet, dense rates, 700 W: HBM3 bandwidth, float32
 # outside the tensor cores (the 'exact' precision runs with TF32 off), bf16
 # on the tensor cores
@@ -79,45 +81,73 @@ def gaps(spans: Iterable[Tuple[float, float]], start: float,
 
 # -- the U-Net ---------------------------------------------------------------
 
-def unet_flops(features: Sequence[int], in_channels: int, out_channels: int,
-               h: int, w: int) -> int:
-    """Operations (2 per multiply-add) of one PlainConvUNet forward on an
-    h x w input: two 3x3 convs a stage, stride 2 below stage 0, 2x2
-    stride-2 transposed convs, two 3x3 convs a decoder stage on the
-    concatenated skip, and the last 1x1 segmentation head. Norms,
-    activations and bias adds are not counted."""
-    total, cin, res = 0, in_channels, []
-    for s, f in enumerate(features):
-        if s:
-            h, w = h // 2, w // 2
-        total += 2 * 9 * (cin * f + f * f) * h * w
-        cin = f
-        res.append((h, w))
-    for s in range(len(features) - 1, 0, -1):
-        (h, w), skip = res[s - 1], features[s - 1]
-        total += 2 * features[s] * skip * 4 * (h // 2) * (w // 2)
-        total += 2 * 9 * (2 * skip * skip + skip * skip) * h * w
-    return total + 2 * features[0] * out_channels * h * w
+def convs(arch, h: int, w: int) -> List[Tuple[int, int, int, int, int, int,
+                                             bool]]:
+    """Every conv of one forward of ``arch`` on an h x w input, in order:
+    (kernel area, stride, H, W, C, Cout, fed). A conv's H x W is its
+    output's; a transposed conv (stride 0) has its input's, since its
+    operations are counted per input pixel. ``fed``: the conv's input is the
+    raw output of the conv before it, whose norm and activation the fused
+    route applies as it reads it, not an activation held in memory.
 
+    ``arch``: a reference.Arch, PlainConvUNet: ``n_conv`` 3x3 convs a stage,
+    stride 2 below stage 0. Or a reference.ResArch, ResidualEncoderUNet: a
+    3x3 stem, then ``blocks[s]`` blocks a stage, each conv1 (3x3, stride 2
+    in a stage's first block below stage 0), conv2 (3x3) and, where the
+    channel count changes, the skip's 1x1 conv at conv1's output size. Both
+    decode through 2x2 stride-2 transposed convs and stages of 3x3 convs on
+    the concatenated skip, and end in the last 1x1 segmentation head."""
+    out = []
+    f = arch.features
 
-def fused_launches(features: Sequence[int], in_channels: int,
-                   patch: Tuple[int, int]) -> List[Tuple[int, int, int, int]]:
-    """(H, W, C, Cout) of every norm-act-conv block of one fast forward that
-    the fused route takes: a stack's first block when its stride is 1 and
-    C >= 16 (without norm-act on its input), and every later block of a
-    stack (with the norm-act of the block before)."""
-    h, w = patch
-    out, cin = [], in_channels
-    for s, f in enumerate(features):
-        hs, ws = h >> s, w >> s
-        if s == 0 and cin >= 16:
-            out.append((hs, ws, cin, f))
-        out.append((hs, ws, f, f))
-        cin = f
-    for e in range(len(features) - 1, 0, -1):
-        hs, ws, cs = h >> (e - 1), w >> (e - 1), features[e - 1]
-        out += [(hs, ws, 2 * cs, cs), (hs, ws, cs, cs)]
+    def stack(n, cin, cout, stride, hs, ws):
+        out.extend((9, stride if i == 0 else 1, hs, ws,
+                    cin if i == 0 else cout, cout, i > 0) for i in range(n))
+
+    residual = isinstance(arch, reference.ResArch)
+    cin = arch.in_channels
+    if residual:
+        stack(1, cin, f[0], 1, h, w)
+        cin = f[0]
+    for s, c in enumerate(f):
+        hs, ws, stride = h >> s, w >> s, 1 if s == 0 else 2
+        if not residual:
+            stack(arch.n_conv, cin, c, stride, hs, ws)
+        else:
+            for b in range(arch.blocks[s]):
+                ci = cin if b == 0 else c
+                out += [(9, stride if b == 0 else 1, hs, ws, ci, c, False),
+                        (9, 1, hs, ws, c, c, True)]
+                if ci != c:
+                    out.append((1, 1, hs, ws, ci, c, False))
+        cin = c
+    n_dec = arch.n_conv_decoder if residual else arch.n_conv
+    for e in range(len(f) - 1, 0, -1):
+        out.append((4, 0, h >> e, w >> e, f[e], f[e - 1], False))
+        stack(n_dec, 2 * f[e - 1], f[e - 1], 1, h >> (e - 1), w >> (e - 1))
+    out.append((1, 1, h, w, f[0], arch.out_channels, False))
     return out
+
+
+def unet_flops(arch, h: int, w: int) -> int:
+    """Operations (2 per multiply-add) of one forward of ``arch`` on an
+    h x w input: every conv, transposed conv, residual skip's 1x1 conv and
+    the last segmentation head (``convs``). Norms, activations, adds, pools
+    and bias adds are not counted."""
+    return sum(2 * k * c * co * hs * ws for k, _, hs, ws, c, co, _ in
+               convs(arch, h, w))
+
+
+def fused_launches(arch, patch: Tuple[int, int]
+                   ) -> List[Tuple[int, int, int, int]]:
+    """(H, W, C, Cout) of every 3x3 conv of one fast forward that the fused
+    norm-act-conv kernel computes: at stride 1, fed by the conv before it
+    (with that conv's norm-act: every later conv of a stack, a residual
+    block's conv2), or on an activation held in memory (without norm-act)
+    with C >= 16."""
+    return [(hs, ws, c, co) for k, stride, hs, ws, c, co, fed in
+            convs(arch, *patch)
+            if k == 9 and stride == 1 and (fed or c >= 16)]
 
 
 def fused_bound_s(n: int, h: int, w: int, c: int, co: int) -> float:

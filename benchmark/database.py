@@ -5,6 +5,12 @@ weights made by the benchmark from the configuration's ``weight_seed``.
 It is written once per checkout under ``benchmark/build/db/`` (a directory
 git ignores), named by a hash of the configuration file, and found there by
 every later run. The reference reads the same checkpoint files back.
+
+The network is the configuration's (manifest.check_config): a plans file
+of a ResidualEncoderUNet names its class and gives its blocks a stage; one
+of a PlainConvUNet names none, as the port's default. An optional
+``plans_name`` names the plans in model.json (``nnu.plans``) and in the
+trainer directory.
 """
 
 from __future__ import annotations
@@ -17,45 +23,63 @@ from typing import Dict, List
 
 import torch
 
-from . import reference
+from . import manifest, reference
 
-TRAINER = 'nnUNetTrainer__nnUNetPlans__2d'
+DEFAULT_PLANS = 'nnUNetPlans'
+RESIDUAL_CLASS = ('dynamic_network_architectures.architectures.unet.'
+                  'ResidualEncoderUNet')
 
 
-def arch(config: dict, group: str) -> reference.Arch:
-    return reference.Arch(in_channels=len(config['channels']),
-                          out_channels=config['groups'][group],
-                          features=tuple(config['features_per_stage']),
-                          n_conv=config['n_conv_per_stage'])
+def arch(config: dict, group: str):
+    """The reference's architecture of one group: a ``reference.Arch`` or,
+    for a ResidualEncoderUNet, a ``reference.ResArch``."""
+    common = dict(in_channels=len(config['channels']),
+                  out_channels=config['groups'][group],
+                  features=tuple(config['features_per_stage']))
+    if manifest.network(config) == manifest.RESIDUAL:
+        return reference.ResArch(
+            **common, blocks=tuple(config['n_blocks_per_stage']),
+            n_conv_decoder=config['n_conv_per_stage_decoder'])
+    return reference.Arch(**common, n_conv=config['n_conv_per_stage'])
 
 
 def _plans(config: dict) -> dict:
     n = len(config['features_per_stage'])
     k = config['kernel_size']
+    kwargs = {'n_stages': n,
+              'features_per_stage': list(config['features_per_stage']),
+              'kernel_sizes': [[k, k]] * n,
+              'strides': [[1, 1]] + [[2, 2]] * (n - 1)}
+    architecture = {'arch_kwargs': kwargs}
+    if manifest.network(config) == manifest.RESIDUAL:
+        architecture = {'network_class_name': RESIDUAL_CLASS, **architecture}
+        kwargs['n_blocks_per_stage'] = list(config['n_blocks_per_stage'])
+        kwargs['n_conv_per_stage_decoder'] = [
+            config['n_conv_per_stage_decoder']] * (n - 1)
+    else:
+        kwargs['n_conv_per_stage'] = [config['n_conv_per_stage']] * n
+        kwargs['n_conv_per_stage_decoder'] = [
+            config['n_conv_per_stage']] * (n - 1)
+    kwargs.update(conv_bias=True,
+                  norm_op_kwargs={'eps': 1e-05, 'affine': True},
+                  nonlin_kwargs={'inplace': True})
     return {'configurations': {'2d': {
         'patch_size': list(config['patch_size']),
         'spacing': list(config['spacing']),
         'normalization_schemes': [config['normalization']] * len(
             config['channels']),
         'use_mask_for_norm': [False] * len(config['channels']),
-        'architecture': {'arch_kwargs': {
-            'n_stages': n,
-            'features_per_stage': list(config['features_per_stage']),
-            'kernel_sizes': [[k, k]] * n,
-            'strides': [[1, 1]] + [[2, 2]] * (n - 1),
-            'n_conv_per_stage': [config['n_conv_per_stage']] * n,
-            'n_conv_per_stage_decoder': [config['n_conv_per_stage']] * (n - 1),
-            'conv_bias': True,
-            'norm_op_kwargs': {'eps': 1e-05, 'affine': True},
-            'nonlin_kwargs': {'inplace': True}}}}}}
+        'architecture': architecture}}}
 
 
 def checkpoints(db: str, config: dict) -> Dict[str, List[str]]:
     """{group: [checkpoint path of each fold]} in the database."""
+    trainer = ('nnUNetTrainer__'
+               f"{config.get('plans_name', DEFAULT_PLANS)}__2d")
     out = {}
     for i, group in enumerate(config['groups']):
         d = os.path.join(db, f"{config['model_key']}_{group}", 'r001',
-                         f'Dataset{200 + i}_{group}', TRAINER)
+                         f'Dataset{200 + i}_{group}', trainer)
         out[group] = [os.path.join(d, f'fold_{f}', 'checkpoint_final.pth')
                       for f in config['folds']]
     return out
@@ -98,11 +122,13 @@ def _write(db: str, config: dict, device, names: List[str]) -> None:
         data_dir = os.path.dirname(os.path.dirname(paths[0]))
         base = os.path.dirname(os.path.dirname(data_dir))
         os.makedirs(data_dir)
+        nnu = {'configuration': '2d', 'folds': list(config['folds']),
+               'predict': {'precision': config['precision'],
+                           'stepsize': config['tile_step_size']}}
+        if 'plans_name' in config:
+            nnu['plans'] = config['plans_name']
         with open(os.path.join(base, 'model.json'), 'w') as f:
-            json.dump({'param': {'nnu': {
-                'configuration': '2d', 'folds': list(config['folds']),
-                'predict': {'precision': config['precision'],
-                            'stepsize': config['tile_step_size']}}}}, f)
+            json.dump({'param': {'nnu': nnu}}, f)
         for name, obj in (('plans.json', plans), ('dataset.json', dataset)):
             with open(os.path.join(data_dir, name), 'w') as f:
                 json.dump(obj, f)
@@ -117,14 +143,14 @@ def _write(db: str, config: dict, device, names: List[str]) -> None:
                         'trainer_name': 'nnUNetTrainer'}, path)
 
 
-def load_nets(db: str, config: dict, device) -> List[List[reference.RefUNet]]:
+def load_nets(db: str, config: dict, device) -> List[List[torch.nn.Module]]:
     """The reference's networks from the checkpoint files: per group, per
     fold, float32 on ``device``."""
     out = []
     for group, paths in checkpoints(db, config).items():
         folds = []
         for path in paths:
-            net = reference.RefUNet(arch(config, group))
+            net = reference.network(arch(config, group))
             sd = torch.load(path, map_location='cpu',
                             weights_only=True)['network_weights']
             net.load_state_dict(sd)

@@ -18,6 +18,13 @@ A mix is of one of two kinds, by the rank of its ``volumes`` entries:
   the program and the reference read each as its own single channel.
 
 Both are compared with the reference alike (check.py).
+
+A configuration names its network by an optional ``network`` key
+(check_config): ``PlainConvUNet`` when it is absent, with
+``n_conv_per_stage`` convs a stage, encoder and decoder; or
+``ResidualEncoderUNet``, with ``n_blocks_per_stage`` (one count per stage)
+and ``n_conv_per_stage_decoder`` (an int). The model database, the
+reference and the operation counts build whichever it names.
 """
 
 from __future__ import annotations
@@ -82,10 +89,53 @@ def check_mix(name: str, mix: dict) -> None:
                          f"'volumes' gives {ranks[0]} sizes in {key!r}")
 
 
+PLAIN, RESIDUAL = 'PlainConvUNet', 'ResidualEncoderUNet'
+# the networks a configuration may name -> the keys each needs: its convs
+# or blocks a stage
+NETWORKS = {PLAIN: ('n_conv_per_stage',),
+            RESIDUAL: ('n_blocks_per_stage', 'n_conv_per_stage_decoder')}
+
+
+def network(config: dict) -> str:
+    return config.get('network', PLAIN)
+
+
+def _count(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool) and v >= 1
+
+
+def check_config(name: str, config: dict) -> None:
+    """Raises ValueError, naming the key, for a configuration whose
+    ``network`` is not one of NETWORKS, that lacks a key its network needs,
+    or whose counts of convs or blocks are not whole numbers from 1, one
+    per stage of ``features_per_stage`` in ``n_blocks_per_stage``."""
+    net = network(config)
+    if net not in NETWORKS:
+        raise ValueError(f"configuration {name!r}: 'network' {net!r} is not "
+                         f"one of {sorted(NETWORKS)}")
+    for key in NETWORKS[net]:
+        if key not in config:
+            raise ValueError(f"configuration {name!r}: a {net} needs "
+                             f"{key!r}")
+    if net == RESIDUAL:
+        blocks = config['n_blocks_per_stage']
+        stages = len(config['features_per_stage'])
+        if not isinstance(blocks, list) or len(blocks) != stages:
+            raise ValueError(
+                f"configuration {name!r}: 'n_blocks_per_stage' must list one "
+                f"count per stage of 'features_per_stage' ({stages})")
+    for key in NETWORKS[net]:
+        counts = (config[key] if key == 'n_blocks_per_stage'
+                  else [config[key]])
+        if not all(_count(c) for c in counts):
+            raise ValueError(f"configuration {name!r}: {key!r} must count "
+                             f"in whole numbers from 1")
+
+
 def cell(root: str, name: str) -> Cell:
     """The cell called ``name``, its files read. Raises KeyError for a name
     that BENCHMARK.json does not list, ValueError for a mix that check_mix
-    refuses."""
+    or a configuration that check_config refuses."""
     m = manifest(root)
     found = [w for w in m['workloads'] if w['name'] == name]
     if not found:
@@ -95,9 +145,11 @@ def cell(root: str, name: str) -> Cell:
     config_path = os.path.join(d, 'configs', f"{w['config']}.json")
     mix = _load(os.path.join(d, 'traffic', f"{w['traffic']}.json"))
     check_mix(w['traffic'], mix)
+    config = _load(config_path)
+    check_config(w['config'], config)
     return Cell(
         name=name, chips=int(w['chips']), config_path=config_path,
-        config=_load(config_path), traffic=mix,
+        config=config, traffic=mix,
         limits=_load(os.path.join(d, 'workloads', f'{name}.json'))['limits'],
         end_to_end=[e for e in m['end_to_end'] if applies(e, name)],
         per_layer=[p for p in m['per_layer'] if applies(p, name)])

@@ -1,9 +1,10 @@
 """kernel csrc/fused_block.cu: the least time of the fused norm-act-conv
 blocks of the scans finished in the profiled slice (every fused block of
-each group's forwards at N = tiles x mirrors x folds, from the model's
-shapes) over the device time of the kernel's launches in it, in %."""
+each group's forwards at N = tiles x mirrors x folds, from the shapes of the
+configuration's network) over the device time of the kernel's launches in
+it, in %."""
 
-from benchmark import arith, reference
+from benchmark import arith, database, reference
 
 KERNELS = ('fused_conv_sm90', 'stats_sum_kernel')
 
@@ -11,9 +12,9 @@ KERNELS = ('fused_conv_sm90', 'stats_sum_kernel')
 def bound_s(config, tiles):
     n = (tiles * len(reference.mirror_combos(config['mirror_axes']))
          * len(config['folds']))
-    blocks = arith.fused_launches(config['features_per_stage'],
-                                  len(config['channels']),
-                                  tuple(config['patch_size']))
+    # the groups' networks differ only in their heads, which are not fused
+    arch = database.arch(config, next(iter(config['groups'])))
+    blocks = arith.fused_launches(arch, tuple(config['patch_size']))
     return len(config['groups']) * sum(
         arith.fused_bound_s(n, *b) for b in blocks)
 

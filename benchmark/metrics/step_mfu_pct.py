@@ -1,9 +1,9 @@
 """The whole step's share of the card's peak: the U-Net operations of the
 scans finished in the profiled slice (each scan's tiles x mirrors x folds
-forwards of every group, counted from the architecture) over the slice's
-seconds x the peak of the configuration's precision, in %."""
+forwards of every group, counted from the configuration's network) over the
+slice's seconds x the peak of the configuration's precision, in %."""
 
-from benchmark import arith, reference
+from benchmark import arith, database, reference
 
 
 def flops_per_scan(config, tiles):
@@ -11,9 +11,8 @@ def flops_per_scan(config, tiles):
     forwards = (tiles * len(reference.mirror_combos(config['mirror_axes']))
                 * len(config['folds']))
     h, w = config['patch_size']
-    return forwards * sum(
-        arith.unet_flops(config['features_per_stage'], len(config['channels']),
-                         labels, h, w) for labels in config['groups'].values())
+    return forwards * sum(arith.unet_flops(database.arch(config, group), h, w)
+                          for group in config['groups'])
 
 
 def read(run):

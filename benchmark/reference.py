@@ -16,11 +16,36 @@ follows the published nnU-Net 2D inference semantics (the oracle that
     re-embed, groups concatenated in model order (the merged mask), one
     group at a time.
 
-The U-Net is nnU-Net's PlainConvUNet with its state-dict names, run in
-float32 with TF32 off. ``quant`` rounds every conv and transposed-conv
-operand first: 'tf32' (10 mantissa bits) or 'fp8' (e4m3, one scale per
-tensor). Those are the controls: the reference computed one precision
-below the configuration's, which the comparison has to refuse.
+The U-Net is the one the configuration names (database.arch): nnU-Net's
+PlainConvUNet (``Arch``, ``RefUNet``) or its ResidualEncoderUNet (``ResArch``,
+``RefResUNet``; Isensee et al., "nnU-Net Revisited", MICCAI 2024), with the
+state-dict names of dynamic_network_architectures, run in float32 with TF32
+off. ``quant`` rounds every conv and transposed-conv operand first, a
+residual skip's 1x1 conv included: 'tf32' (10 mantissa bits) or 'fp8'
+(e4m3, one scale per tensor). Those are the controls: the reference computed
+one precision below the configuration's, which the comparison has to refuse.
+
+The residual net follows the paper's equations: a 3x3 conv stem to
+``features[0]``; per stage ``blocks[s]`` BasicBlockD blocks, the first
+strided below stage 0, each ``act(IN(conv2(act(IN(conv1(x))))) + skip(x))``;
+PlainConvUNet's decoder. These details are taken from the published code
+(dynamic_network_architectures/building_blocks/residual.py, BasicBlockD;
+its source is not in the repository), not from the paper:
+
+- ``skip`` is the identity where the block keeps its stride at 1 and its
+  channel count; otherwise an ``nn.Sequential`` of AvgPool(s, s) where the
+  block is strided, then, where the channel count changes, a 1x1 conv
+  without bias and an InstanceNorm (no activation). So ``skip.0`` is the
+  pool or the conv, ``skip.1`` the conv after a pool; a strided block that
+  keeps its channel count pools only and has no skip weights;
+- the stem is a one-conv ``StackedConvBlocks`` (``encoder.stem.convs.0``),
+  the blocks ``encoder.stages.<s>.blocks.<b>.conv1`` / ``.conv2``;
+- conv1 and conv2 carry a bias (the plans' ``conv_bias``); conv2's norm is
+  not activated: the block's activation comes after the add.
+
+As for PlainConvUNet, the aliases a real checkpoint also holds
+(``all_modules.<i>``, the decoder's ``decoder.encoder.``) are not written:
+the port drops them on load.
 """
 
 from __future__ import annotations
@@ -48,6 +73,21 @@ class Arch:
     slope: float = 0.01
 
 
+@dataclass(frozen=True)
+class ResArch:
+    """One group model: ResidualEncoderUNet, 3x3 convs, a stem, ``blocks[s]``
+    BasicBlockD blocks a stage (the first strided below stage 0), and
+    PlainConvUNet's decoder with ``n_conv_decoder`` convs a stage;
+    InstanceNorm (affine) and LeakyReLU(0.01) as in ``Arch``."""
+    in_channels: int
+    out_channels: int
+    features: Tuple[int, ...]
+    blocks: Tuple[int, ...]
+    n_conv_decoder: int = 1
+    eps: float = 1e-5
+    slope: float = 0.01
+
+
 # -- operand rounding (the controls) ------------------------------------------
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -70,23 +110,36 @@ QUANT: Dict[Optional[str], Callable[[torch.Tensor], torch.Tensor]] = {
 
 # -- the network ----------------------------------------------------------------
 
-class _Block(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int, arch: Arch):
+class _ConvNorm(nn.Module):
+    """conv -> InstanceNorm: ConvDropoutNormReLU without its activation."""
+
+    def __init__(self, cin: int, cout: int, stride: int, arch,
+                 kernel: int = 3, bias: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
+                              padding=kernel // 2, bias=bias)
         self.norm = nn.InstanceNorm2d(cout, eps=arch.eps, affine=True)
-        self.slope = arch.slope
 
     def forward(self, x, q):
         x = F.conv2d(q(x), q(self.conv.weight), self.conv.bias,
                      self.conv.stride, self.conv.padding)
-        x = F.instance_norm(x, weight=self.norm.weight, bias=self.norm.bias,
-                            eps=self.norm.eps)
-        return F.leaky_relu(x, self.slope)
+        return F.instance_norm(x, weight=self.norm.weight, bias=self.norm.bias,
+                               eps=self.norm.eps)
+
+
+class _Block(_ConvNorm):
+    """conv -> InstanceNorm -> LeakyReLU."""
+
+    def __init__(self, cin: int, cout: int, stride: int, arch):
+        super().__init__(cin, cout, stride, arch)
+        self.slope = arch.slope
+
+    def forward(self, x, q):
+        return F.leaky_relu(super().forward(x, q), self.slope)
 
 
 class _Stack(nn.Module):
-    def __init__(self, n: int, cin: int, cout: int, stride: int, arch: Arch):
+    def __init__(self, n: int, cin: int, cout: int, stride: int, arch):
         super().__init__()
         self.convs = nn.Sequential(*[
             _Block(cin if i == 0 else cout, cout, stride if i == 0 else 1,
@@ -96,6 +149,32 @@ class _Stack(nn.Module):
         for block in self.convs:
             x = block(x, q)
         return x
+
+
+class _Decoder(nn.Module):
+    """nnU-Net's UNetDecoder, deepest stage first: a 2x2 stride-2
+    transposed conv, the encoder's skip concatenated, ``n_conv`` blocks;
+    the last stage's 1x1 segmentation head (the deeper heads are kept for
+    the checkpoint's names, and not run)."""
+
+    def __init__(self, n_conv: int, arch):
+        super().__init__()
+        f = arch.features
+        below = list(range(len(f) - 1, 0, -1))
+        self.transpconvs = nn.ModuleList([
+            nn.ConvTranspose2d(f[s], f[s - 1], 2, 2) for s in below])
+        self.stages = nn.ModuleList([
+            _Stack(n_conv, 2 * f[s - 1], f[s - 1], 1, arch) for s in below])
+        self.seg_layers = nn.ModuleList([
+            nn.Conv2d(f[s - 1], arch.out_channels, 1) for s in below])
+
+    def forward(self, skips: List[torch.Tensor], q):
+        x = skips[-1]
+        for d, (up, stage) in enumerate(zip(self.transpconvs, self.stages)):
+            x = F.conv_transpose2d(q(x), q(up.weight), up.bias, stride=2)
+            x = stage(torch.cat([x, skips[-2 - d]], dim=1), q)
+        head = self.seg_layers[-1]
+        return F.conv2d(q(x), q(head.weight), head.bias)
 
 
 class RefUNet(nn.Module):
@@ -108,15 +187,7 @@ class RefUNet(nn.Module):
         self.encoder.stages = nn.ModuleList([
             _Stack(arch.n_conv, arch.in_channels if s == 0 else f[s - 1],
                    f[s], 1 if s == 0 else 2, arch) for s in range(len(f))])
-        self.decoder = nn.Module()
-        below = list(range(len(f) - 1, 0, -1))
-        self.decoder.transpconvs = nn.ModuleList([
-            nn.ConvTranspose2d(f[s], f[s - 1], 2, 2) for s in below])
-        self.decoder.stages = nn.ModuleList([
-            _Stack(arch.n_conv, 2 * f[s - 1], f[s - 1], 1, arch)
-            for s in below])
-        self.decoder.seg_layers = nn.ModuleList([
-            nn.Conv2d(f[s - 1], arch.out_channels, 1) for s in below])
+        self.decoder = _Decoder(arch.n_conv, arch)
 
     def forward(self, x: torch.Tensor, quant: Optional[str] = None):
         q = QUANT[quant]
@@ -124,22 +195,84 @@ class RefUNet(nn.Module):
         for stage in self.encoder.stages:
             x = stage(x, q)
             skips.append(x)
-        x = skips[-1]
-        for d, (up, stage) in enumerate(zip(self.decoder.transpconvs,
-                                            self.decoder.stages)):
-            x = F.conv_transpose2d(q(x), q(up.weight), up.bias, stride=2)
-            x = stage(torch.cat([x, skips[-2 - d]], dim=1), q)
-        head = self.decoder.seg_layers[-1]
-        return F.conv2d(q(x), q(head.weight), head.bias)
+        return self.decoder(skips, q)
 
 
-def init_state(arch: Arch, generator: torch.Generator, head_shift: float,
+class _BasicBlockD(nn.Module):
+    """``act(IN(conv2(act(IN(conv1(x))))) + skip(x))``; ``skip`` as the
+    module docstring says (an empty Sequential is the identity)."""
+
+    def __init__(self, cin: int, cout: int, stride: int, arch: ResArch):
+        super().__init__()
+        self.conv1 = _Block(cin, cout, stride, arch)
+        self.conv2 = _ConvNorm(cout, cout, 1, arch)
+        self.skip = nn.Sequential(
+            *([nn.AvgPool2d(stride, stride)] if stride != 1 else []),
+            *([_ConvNorm(cin, cout, 1, arch, kernel=1, bias=False)]
+              if cin != cout else []))
+        self.slope = arch.slope
+
+    def forward(self, x, q):
+        r = x
+        for op in self.skip:
+            r = op(r, q) if isinstance(op, _ConvNorm) else op(r)
+        return F.leaky_relu(self.conv2(self.conv1(x, q), q) + r, self.slope)
+
+
+class _Residual(nn.Module):
+    """StackedResidualBlocks: ``n`` blocks, the first at ``stride``."""
+
+    def __init__(self, n: int, cin: int, cout: int, stride: int,
+                 arch: ResArch):
+        super().__init__()
+        self.blocks = nn.Sequential(*[
+            _BasicBlockD(cin if i == 0 else cout, cout,
+                         stride if i == 0 else 1, arch) for i in range(n)])
+
+    def forward(self, x, q):
+        for block in self.blocks:
+            x = block(x, q)
+        return x
+
+
+class RefResUNet(nn.Module):
+    """nnU-Net's ResidualEncoderUNet (2D), named as
+    dynamic_network_architectures names it."""
+
+    def __init__(self, arch: ResArch):
+        super().__init__()
+        f = arch.features
+        self.encoder = nn.Module()
+        self.encoder.stem = _Stack(1, arch.in_channels, f[0], 1, arch)
+        self.encoder.stages = nn.ModuleList([
+            _Residual(arch.blocks[s], f[s - 1] if s else f[0], f[s],
+                      1 if s == 0 else 2, arch) for s in range(len(f))])
+        self.decoder = _Decoder(arch.n_conv_decoder, arch)
+
+    def forward(self, x: torch.Tensor, quant: Optional[str] = None):
+        q = QUANT[quant]
+        x = self.encoder.stem(x, q)
+        skips = []
+        for stage in self.encoder.stages:
+            x = stage(x, q)
+            skips.append(x)
+        return self.decoder(skips, q)
+
+
+def network(arch) -> nn.Module:
+    """The reference's network of an ``Arch`` or a ``ResArch``."""
+    return RefResUNet(arch) if isinstance(arch, ResArch) else RefUNet(arch)
+
+
+def init_state(arch, generator: torch.Generator, head_shift: float,
                device) -> Dict[str, torch.Tensor]:
-    """Random weights in one draw: He-normal conv and transposed-conv
-    weights (std sqrt(2 / fan_in)), zero biases, unit norm scales, and every
-    segmentation head's bias at ``head_shift`` so that each label's
-    foreground is a small share of the image, as trained heads make it."""
-    shapes = RefUNet(arch).state_dict()
+    """Random weights of ``network(arch)`` in one draw, in the state dict's
+    order: He-normal weights of every conv and transposed conv, a residual
+    skip's 1x1 conv included (std sqrt(2 / fan_in)), zero biases, unit norm
+    scales, and every segmentation head's bias at ``head_shift`` so that
+    each label's foreground is a small share of the image, as trained heads
+    make it."""
+    shapes = network(arch).state_dict()
     weights = [(k, v.shape) for k, v in shapes.items()
                if k.endswith('.weight') and v.dim() == 4]
     flat = torch.randn(sum(s.numel() for _, s in weights),
@@ -296,7 +429,7 @@ def float32_only():
 
 @torch.no_grad()
 def group_logits(arr: np.ndarray, spacing_yx: Sequence[float],
-                 groups: Sequence[Sequence[RefUNet]], patch: Tuple[int, int],
+                 groups: Sequence[Sequence[nn.Module]], patch: Tuple[int, int],
                  plan_spacing: Sequence[float], step: float,
                  mirror_axes: Sequence[int], quant: Optional[str] = None,
                  chunk: int = 16) -> Iterator[torch.Tensor]:

@@ -70,7 +70,8 @@ def test_fused_bound():
               + 16 * 2 * 32 * 4)
     assert arith.fused_bound_s(16, 256, 256, 32, 32) == nbytes / 3.35e12
     # the flagship's 16 fused blocks a forward (80 a scan over 5 groups)
-    blocks = arith.fused_launches([32, 64, 128, 256, 512, 512], 2, (256, 256))
+    flagship = reference.Arch(2, 24, (32, 64, 128, 256, 512, 512))
+    blocks = arith.fused_launches(flagship, (256, 256))
     assert len(blocks) == 16 and blocks[0] == (256, 256, 32, 32)
 
 
@@ -80,14 +81,34 @@ def test_prefilter_bound():
     assert t == 2 * 2 * 400 * 512 * 2 * 4 / 3.35e12
 
 
-@pytest.mark.parametrize('features,h', [((8, 16, 32, 32), 64),
-                                        ((4, 8, 16), 32)])
-def test_unet_flops_match_torchs_counter(features, h):
-    arch = reference.Arch(in_channels=2, out_channels=5, features=features)
-    net = reference.RefUNet(arch).eval()
+@pytest.mark.parametrize('arch,h', [
+    (reference.Arch(2, 5, (8, 16, 32, 32)), 64),
+    (reference.Arch(2, 5, (4, 8, 16)), 32),
+    (reference.Arch(2, 5, (4, 8, 16), n_conv=3), 32),
+    (reference.ResArch(2, 5, (4, 8, 16), (1, 2, 2), 1), 32),
+    # a strided block that keeps its channels: its skip pools, no 1x1 conv
+    (reference.ResArch(1, 5, (8, 16, 16, 32), (2, 1, 3, 2), 2), 64),
+])
+def test_unet_flops_match_torchs_counter(arch, h):
+    net = reference.network(arch).eval()
     with FlopCounterMode(display=False) as counter, torch.no_grad():
-        net(torch.zeros(1, 2, h, h))
-    assert arith.unet_flops(features, 2, 5, h, h) == counter.get_total_flops()
+        net(torch.zeros(1, arch.in_channels, h, h))
+    assert arith.unet_flops(arch, h, h) == counter.get_total_flops()
+
+
+def test_fused_launches_of_a_residual_net_by_hand():
+    """ResEnc (8, 16, 32) with blocks (1, 2, 2) and one decoder conv at
+    32^2: every conv2, a stride-1 conv1 of 16 or more channels, and the
+    decoder's convs; never the stem (2 channels), a strided conv1, a skip's
+    1x1 or the head."""
+    arch = reference.ResArch(2, 3, (8, 16, 32), (1, 2, 2), 1)
+    assert arith.fused_launches(arch, (32, 32)) == [
+        (32, 32, 8, 8),                                # stage 0: conv2
+        (16, 16, 16, 16),                              # stage 1, 0: conv2
+        (16, 16, 16, 16), (16, 16, 16, 16),            # stage 1, 1
+        (8, 8, 32, 32),                                # stage 2, 0: conv2
+        (8, 8, 32, 32), (8, 8, 32, 32),                # stage 2, 1
+        (16, 16, 32, 16), (32, 32, 16, 8)]             # the decoder
 
 
 def _cell(config, mix):
@@ -174,21 +195,20 @@ def test_prefilter_roofline_of_a_2d_mix():
 def test_one_channel_network_counts():
     """At one input channel stage 0's first conv is not fused (C < 16) and
     its operations are counted at C = 1, as torch counts them."""
-    features = [32, 64, 128, 256, 512, 512]
-    blocks = arith.fused_launches(features, 1, (256, 256))
+    features = (32, 64, 128, 256, 512, 512)
+    blocks = arith.fused_launches(reference.Arch(1, 24, features), (256, 256))
     assert len(blocks) == 16 and blocks[0] == (256, 256, 32, 32)
-    assert arith.fused_launches(features, 16, (256, 256))[0] == (
-        256, 256, 16, 32)
+    assert arith.fused_launches(reference.Arch(16, 24, features),
+                                (256, 256))[0] == (256, 256, 16, 32)
     arch = reference.Arch(in_channels=1, out_channels=24,
                           features=(8, 16, 32, 32))
     net = reference.RefUNet(arch).eval()
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         net(torch.zeros(1, 1, 64, 64))
-    assert arith.unet_flops((8, 16, 32, 32), 1, 24, 64, 64) == \
-        counter.get_total_flops()
+    assert arith.unet_flops(arch, 64, 64) == counter.get_total_flops()
     config = {'mirror_axes': [0, 1], 'folds': [0], 'patch_size': [64, 64],
-              'features_per_stage': [8, 16, 32, 32], 'channels': ['xray'],
-              'groups': {'a': 24, 'b': 24}}
+              'features_per_stage': [8, 16, 32, 32], 'n_conv_per_stage': 2,
+              'channels': ['xray'], 'groups': {'a': 24, 'b': 24}}
     mfu = manifest.reader(ROOT, 'step_mfu_pct').__globals__
     assert mfu['flops_per_scan'](config, 3) == 3 * 4 * 2 * \
         counter.get_total_flops()

@@ -23,8 +23,9 @@ pytestmark = pytest.mark.requires_cuda
 @pytest.mark.parametrize('trace', [0, 1])
 def test_a_cell_runs_on_the_card(cuda, trace):
     out = subprocess.run(
-        [sys.executable, 'benchmark/run.py', '--workload', 'ct-fast.solo',
-         '--seed', str(2 ** 31 + 99), '--seconds', '2', '--trace', str(trace)],
+        [sys.executable, 'benchmark/run.py', '--workload',
+         'ct-fast.cohort8-mixed', '--seed', str(2 ** 31 + 99),
+         '--seconds', '2', '--trace', str(trace)],
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])

@@ -9,8 +9,7 @@ import pytest
 from benchmark import calibrate, check, database, harness, manifest
 from totalsegmentator2d_tpu_torch.utils.config import get_label_colors
 
-CELLS = ['ct-fast.solo', 'ct-exact.solo', 'ct-fast.cohort8',
-         'ct-fast.cohort8-mixed']
+CELLS = ['ct-exact.solo', 'ct-fast.cohort8', 'ct-fast.cohort8-mixed']
 
 
 VOLUMES = [[160, 64, 256], [200, 64, 240]]

@@ -10,8 +10,7 @@ import torch
 
 from totalsegmentator2d_tpu_torch.inference import ensemble_engine
 
-CELLS = ['ct-fast.solo', 'ct-exact.solo', 'ct-fast.cohort8',
-         'ct-fast.cohort8-mixed']
+CELLS = ['ct-exact.solo', 'ct-fast.cohort8', 'ct-fast.cohort8-mixed']
 
 
 def altered_answer(monkeypatch):

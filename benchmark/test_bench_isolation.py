@@ -76,12 +76,12 @@ def test_a_checkout_without_the_port_fails(tmp_path, small_root, monkeypatch):
     shutil.copytree(os.path.join(ROOT, 'benchmark'), bare / 'benchmark',
                     ignore=shutil.ignore_patterns('build', '__pycache__'))
     out = subprocess.run([sys.executable, 'benchmark/run.py', '--workload',
-                          'ct-fast.solo', '--seed', '1', '--seconds', '1',
+                          'ct-exact.solo', '--seed', '1', '--seconds', '1',
                           '--trace', '0'], cwd=bare, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode != 0 and not out.stdout.strip()
     # the harness takes only the checkout's own port
     monkeypatch.setattr(harness, 'CHECKOUT', str(bare))
-    cell = harness.manifest.cell(small_root, 'ct-fast.solo')
+    cell = harness.manifest.cell(small_root, 'ct-exact.solo')
     with pytest.raises(ImportError):
         harness.open_tool(cell, small_root, harness.torch.device('cpu'))

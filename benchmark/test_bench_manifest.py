@@ -216,4 +216,38 @@ def test_a_mix_of_two_kinds_or_without_its_spacing_is_refused(
               'w') as f:
         json.dump(dict(mix, entry='predict', in_flight=1, traced_scans=1), f)
     with pytest.raises(ValueError, match=repr(key)):
-        manifest.cell(root, 'ct-fast.solo')
+        manifest.cell(root, 'ct-exact.solo')
+
+
+@pytest.mark.parametrize('change,key', [
+    ({'network': 'UNetPlusPlus'}, 'network'),
+    ({'network': 'ResidualEncoderUNet', 'n_conv_per_stage_decoder': 1},
+     'n_blocks_per_stage'),
+    ({'network': 'ResidualEncoderUNet', 'n_blocks_per_stage': [1, 3],
+      'n_conv_per_stage_decoder': 1}, 'n_blocks_per_stage'),
+    ({'network': 'ResidualEncoderUNet', 'n_blocks_per_stage': [1, 3, 4, 6]},
+     'n_conv_per_stage_decoder'),
+    ({'network': 'ResidualEncoderUNet', 'n_blocks_per_stage': [1, 3, 0, 6],
+      'n_conv_per_stage_decoder': 1}, 'n_blocks_per_stage'),
+    ({'network': 'ResidualEncoderUNet', 'n_blocks_per_stage': [1, 3, 4, 6],
+      'n_conv_per_stage_decoder': 1.5}, 'n_conv_per_stage_decoder'),
+    ({'network': 'ResidualEncoderUNet', 'n_blocks_per_stage': [1, 3, 4, 6],
+      'n_conv_per_stage_decoder': [1, 1, 1]}, 'n_conv_per_stage_decoder'),
+    ({'n_conv_per_stage': 0}, 'n_conv_per_stage'),
+])
+def test_a_configuration_with_a_fault_in_its_network_is_refused(
+        tmp_path, small_root, change, key):
+    """An unknown network, a residual one without its blocks a stage, with
+    the wrong number of them, without its decoder's convs, or with a count
+    that is not one whole number from 1 (the small root's 4 stages)."""
+    root = str(tmp_path / 'root')
+    shutil.copytree(small_root, root,
+                    ignore=shutil.ignore_patterns('build'))
+    path = os.path.join(root, 'benchmark', 'configs', 'ts2d-v2-fast.json')
+    with open(path) as f:
+        cfg = json.load(f)
+    with open(path, 'w') as f:
+        json.dump(dict(cfg, **change), f)
+    with pytest.raises(ValueError, match=repr(key)):
+        manifest.cell(root, 'ct-fast.cohort8')
+

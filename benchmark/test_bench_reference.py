@@ -149,7 +149,7 @@ def test_flip_numbers():
     assert not check.passes(checks)
 
 
-@pytest.mark.parametrize('cell', ['ct-exact.solo', 'ct-fast.solo'])
+@pytest.mark.parametrize('cell', ['ct-exact.solo', 'ct-fast.cohort8-mixed'])
 def test_reference_against_the_port(run_small, cell):
     """The port's masks from a run of the cell at a small size against the
     reference: exact agrees voxel for voxel, fast within its bf16 flips."""

@@ -121,8 +121,8 @@ def traced_root(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize('cell', ['ct-fast.solo', 'ct-exact.solo',
-                                  'ct-fast.cohort8', 'ct-fast.cohort8-mixed'])
+@pytest.mark.parametrize('cell', ['ct-exact.solo', 'ct-fast.cohort8',
+                                  'ct-fast.cohort8-mixed'])
 def test_traced_run_reads_every_span_metric(run_small, traced_root, cell):
     code, line, err = run_small(cell, seed=2 ** 31 + 3, trace=1,
                                 root=traced_root)
